@@ -4,7 +4,7 @@ headless analog in English: `lut-tpu help [topic]`.
 
 Content mirrors the reference's guidance where a policy consequence exists
 (what each knob does, what "blank = auto" means, interactions like
-copy-codec + LUT) and adds TPU-build specifics (precision tiers, dither
+copy-codec + LUT) and adds this build's specifics (precision, dither
 substitutions, encoder availability).
 """
 
@@ -15,7 +15,7 @@ from typing import Dict
 TOPICS: Dict[str, str] = {
     "mode": """\
 --mode fast|pro
-  fast: one encode pass — decode, LUT on the TPU, distribution encode.
+  fast: one encode pass — decode, LUT on the device, distribution encode.
   pro:  two-stage mastering — stage 1 renders the LUT into a ProRes 422 HQ
         master (yuv422p10le, audio copied) in --master-dir; stage 2 encodes
         the distribution file from that master with YOUR parameters and no
@@ -37,14 +37,11 @@ TOPICS: Dict[str, str] = {
   task creation auto-switches to an encoding codec (the reference's
   copy-codec guard) or `plan` raises if forced.
 
-  Throughput steering (encode runs on the HOST; the TPU renders 4K at
-  50-220 fps, so a slow encoder IS the pipeline bound — measured on one
-  core, experiments/r8_codec_throughput.py):
-    mpeg4 ~113 fps 1080p / 23 fps 4K and mjpeg ~100/40 are the
-    throughput-cheap lossy picks for serving; utvideo (~39/7) and ffv1
-    (~13/4.5) when lossless matters; libvpx-vp9 (~3.5/0.9 at CRF) and
-    prores_ks (~1.9/0.6 — the bundled build is single-threaded) are
-    quality-bound offline choices.""",
+  Throughput steering: encode runs on the HOST, so a slow encoder can be
+  the pipeline bound. mpeg4 and mjpeg are the throughput-cheap lossy
+  picks for serving; utvideo and ffv1 when lossless matters; libvpx-vp9
+  and prores_ks (the bundled build is single-threaded) are quality-bound
+  offline choices.""",
     "pix_fmt": """\
 --pix-fmt FMT (blank = policy decides)
   Output pixel format. The bit-depth policy fills this when blank:
@@ -62,8 +59,8 @@ TOPICS: Dict[str, str] = {
 --resolution WxH (blank = source)
   Output size. Blank inherits the probed source resolution (the
   reference's smart default). Scaling matches swscale's default bicubic
-  (B=0, C=0.6 — what FFmpeg `-s` does), run on the TPU in RGB after the
-  LUT as MXU matmuls.""",
+  (B=0, C=0.6 — what FFmpeg `-s` does), run on the device in RGB after
+  the LUT as two full-float32 matmuls per plane.""",
     "bitrate": """\
 --bitrate N[k|M] (blank = source)
   Target video bitrate. Blank inherits the source's probed bitrate. When
@@ -89,7 +86,8 @@ TOPICS: Dict[str, str] = {
   Troubleshooting: washed-out output usually means a missing Log->709
   conversion; oversaturated/over-contrasty output usually means the
   conversion was applied twice or the LUT doesn't match the source.
-  Applied on the TPU by the Pallas MXU kernel (the engine's lut3d).""",
+  Applied on the device by the engine's lut3d (gathers of the float32
+  table, FFmpeg's interpolation rules).""",
     "preset": """\
 --enc-preset NAME
   Speed/efficiency trade for encoders that support it (ultrafast ...
@@ -124,7 +122,7 @@ TOPICS: Dict[str, str] = {
   libavcodec context does not — this engine passes threads=auto by
   default to match the reference's effective behavior. Set a number to
   bound encoder CPU use (e.g. while editing alongside a batch). Note the
-  TPU render stage is unaffected; threads only shapes the host encode.""",
+  device render stage is unaffected; threads only shapes the host encode.""",
     "audio_bitrate": """\
 --audio-bitrate N[k] (blank = encoder default)
   Target audio bitrate for transcoded audio (aac). Higher keeps more
@@ -192,15 +190,15 @@ overwrite behavior
   partition with room; keep projects in separate directories for easy
   archiving.""",
     "hardware": """\
-TPU hardware notes
+accelerator notes
   The pixel path (YUV<->RGB, range, chroma resampling, 3D-LUT, dither,
-  quantization) runs fused on the TPU; decode/encode run on the host via
-  the bundled FFmpeg libraries. One chip time-slices between concurrent
-  tasks; multi-chip pods shard frames across chips over ICI (batch axis)
-  with the LUT replicated — no cross-chip traffic per frame. First use of
-  a new (shape, LUT-size, tier) combination compiles a program (seconds
-  to ~a minute); compiled programs land in a persistent cache, so warm
-  runs start instantly.""",
+  quantization) runs as one jitted program on the accelerator (an NVIDIA
+  GPU); decode/encode run on the host via the bundled FFmpeg libraries.
+  One device time-slices between concurrent tasks; with several devices
+  visible, frame batches are sharded across them with the LUT replicated
+  — no cross-device traffic per frame. First use of a new (shape,
+  LUT-size) combination compiles a program; compiled programs land in a
+  persistent cache, so warm runs start without compiling.""",
     "fps": """\
 --fps N (blank = passthrough) / --no-force-cfr
   Setting fps forces constant frame rate at that rate (duplicate/drop on
@@ -219,18 +217,16 @@ TPU hardware notes
   3D-LUT interpolation. tetrahedral (default) matches FFmpeg lut3d's
   default and is the grading-industry standard; trilinear is faster;
   nearest/pyramid/prism complete FFmpeg's mode set ('cubic' falls back to
-  tetrahedral, as FFmpeg itself rejects it). All five run natively on the
-  TPU with max dE76 vs FFmpeg lut3d ~ 1e-4 at exact precision.""",
+  tetrahedral, as FFmpeg itself rejects it). All five run on the device
+  with FFmpeg's own formulas in float32.""",
     "precision": """\
-kernel precision (automatic)
-  The LUT kernel carries several numeric tiers (int8 table pair at the
-  MXU's 2x int8 rate, bf16-pair "exact", bf16-single "fast", and a merged
-  coarse+residual decomposition for 65^3 LUTs). Interpolation weights are
-  exact f32 in every tier (they apply after the dot), so the production
-  int8 tier is itself near-exact (~3e-4 dE76 vs FFmpeg lut3d). Selection
-  is still automatic per LUT: a NumPy replay of each tier's numerics over
-  a dense probe set must clear a 0.4 dE76 budget (contract: < 0.5), else
-  the next tier is tried, ending at exact — no user knob needed.""",
+pixel precision (fixed)
+  The whole pixel path computes in float32: the LUT core reads the .cube
+  table as float32 with FFmpeg lut3d's interpolation rules, and the resize
+  matmuls run at full float32 precision. Outputs track a NumPy reference
+  of the pipeline to within one code value on a tiny share of samples,
+  and FFmpeg lut3d well inside the dE76 < 0.5 contract — there is no
+  user knob.""",
     "input_matrix": """\
 --input-matrix auto|bt709|smpte170m|bt470bg|bt2020nc|none
   YUV->RGB matrix for the LUT input. auto: probe's colorspace when
@@ -247,11 +243,9 @@ kernel precision (automatic)
   error_diffusion: exact serial Floyd-Steinberg on the host via the native
   C++ helper (zscale-faithful); if the helper is unavailable it degrades
   to ordered with a note. NOTE: the FS recurrence is inherently serial and
-  runs on one CPU core — the fixed-point fast path measures ~52 ms per 4K
-  4:2:0 frame (~19 fps ceiling, overlapped with device compute) vs ~60 fps
-  for the in-kernel dithers; prefer ordered/random unless
-  zscale-exact output is required. ordered: zero-mean 16x16 Bayer inside
-  the TPU pipeline. random: stateless position-hash stochastic rounding
+  runs on one CPU core (overlapped with device compute), so it can bound
+  throughput; prefer ordered/random unless zscale-exact output is
+  required. ordered: zero-mean 16x16 Bayer inside the device pipeline. random: stateless position-hash stochastic rounding
   (no tile structure, bit-reproducible across runs).""",
     "audio": """\
 --audio-codec copy|aac|flac|alac|ac3|eac3|mp2|opus|vorbis|none
@@ -266,8 +260,8 @@ kernel precision (automatic)
     "concurrency": """\
 --concurrency N (1-16)
   Parallel tasks. Each task runs its own decode/render/encode pipeline;
-  the TPU time-slices between render steps. 1 (default, like the
-  reference) is usually right for one chip — raise it when tasks are
+  the device time-slices between render steps. 1 (default, like the
+  reference) is usually right for one device — raise it when tasks are
   host-bound (decode/encode heavy, small frames).""",
     "watch": """\
 --watch
@@ -277,7 +271,7 @@ kernel precision (automatic)
   queue keeps running). The headless analog of the reference's window.""",
     "serve": """\
 lut-tpu serve --socket PATH [--http PORT] [--queue-file PATH] [--warmup]
-  Warm render daemon: one process owns the chip and keeps the compiled
+  Warm render daemon: one process owns the device and keeps the compiled
   programs and prepared LUTs resident, so a job costs render time instead
   of process startup + compile. Jobs arrive as JSON lines over the Unix
   socket (drive ad hoc with `lut-tpu client`); --warmup precompiles the
@@ -325,7 +319,8 @@ ALIASES = {
     "enc-preset": "preset", "enc-profile": "profile",
     "audio-bitrate": "audio_bitrate", "sample-rate": "sample_rate",
     "out-dir": "out_dir", "output-dir": "out_dir",
-    "intermediate_dir": "master_dir", "tpu": "hardware",
+    "intermediate_dir": "master_dir", "gpu": "hardware",
+    "device": "hardware",
     "pix-fmt": "pix_fmt",
     "web": "serve", "gui": "serve", "daemon": "serve", "client": "serve",
     "http": "serve",

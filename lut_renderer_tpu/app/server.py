@@ -1,8 +1,8 @@
 """Warm render service: a long-lived daemon over the task queue.
 
 Production serving for the framework (no reference analog — the reference
-is a desktop app; this is the deployment story for the TPU rebuild): one
-process owns the chip, keeps the jit executables and prepared LUTs warm,
+is a desktop app; this is the deployment story for the rebuild): one
+process owns the device, keeps the jit executables and prepared LUTs warm,
 and accepts jobs over a Unix domain socket so per-job cost is pure render
 time instead of process startup + compile.
 
@@ -61,10 +61,9 @@ class QueueServer:
     """Owns a TaskManager and serves the JSON-lines protocol."""
 
     def __init__(self, socket_path, max_concurrency: int = 1,
-                 lut_strategy: str = "mxu", queue_file=None):
+                 queue_file=None):
         self.socket_path = Path(socket_path)
-        self.manager = TaskManager(max_concurrency=max_concurrency,
-                                   lut_strategy=lut_strategy)
+        self.manager = TaskManager(max_concurrency=max_concurrency)
         self._lock = threading.Lock()
         self._server: Optional[socketserver.ThreadingUnixStreamServer] = None
         self._thread: Optional[threading.Thread] = None

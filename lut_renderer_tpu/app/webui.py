@@ -3,8 +3,8 @@ reference's Qt main window.
 
 The reference paints its GUI with PySide6/qt-material (reference
 app.py:68-84, main_window.py:197 onward). PySide6 is not part of this
-environment, and a desktop toolkit is the wrong shell for a headless TPU
-deployment anyway — the machine that owns the chip is usually not the
+environment, and a desktop toolkit is the wrong shell for a headless GPU
+deployment anyway — the machine that owns the card is usually not the
 machine with the screen. The GUI shell here is a zero-dependency web page
 served by the daemon itself (`lut-tpu serve --http PORT`): the same
 QueueServer process that keeps the jit executables warm serves a

@@ -13,7 +13,7 @@ PAGE = r"""<!doctype html>
 <head>
 <meta charset="utf-8">
 <meta name="viewport" content="width=device-width, initial-scale=1">
-<title>LUT Renderer — TPU</title>
+<title>LUT Renderer</title>
 <style>
 :root { --bg:#121517; --panel:#1b2023; --panel2:#22282c; --line:#2e373c;
         --text:#e0e3e5; --dim:#93a1a8; --teal:#26a69a; --teal2:#1d7d74;
@@ -28,7 +28,6 @@ header { display:flex; align-items:center; gap:16px; padding:10px 18px;
          background:var(--panel); border-bottom:1px solid var(--line);
          position:sticky; top:0; z-index:5; }
 header h1 { font-size:17px; margin:0; font-weight:600; letter-spacing:.3px; }
-header h1 .tpu { color:var(--teal); }
 header .ver { color:var(--dim); font-size:12px; }
 #agg { flex:1; display:flex; align-items:center; gap:8px; min-width:160px; }
 .bar { flex:1; height:8px; background:var(--panel2); border-radius:4px;
@@ -122,7 +121,7 @@ input[type=file] { color:var(--dim); font-size:12px; width:100%; }
 </head>
 <body class="light">
 <header>
-  <h1>LUT Renderer <span class="tpu">TPU</span></h1>
+  <h1>LUT Renderer</h1>
   <span class="ver" id="ver"></span>
   <div id="agg"><div class="bar"><div id="aggfill"></div></div>
     <span id="aggpct" class="ver">0%</span></div>

@@ -1,8 +1,8 @@
 """colorcore — pure color math: .cube parsing, YUV<->RGB matrices, range
 transforms, reference 3D-LUT interpolators, and color-difference metrics.
 
-This layer is the correctness anchor for the whole framework: the Pallas/XLA
-kernels in `ops` and the host oracle in `hostio` are both validated against it.
+This layer is the correctness anchor for the whole framework: the jitted XLA
+pipeline in `ops` and the host oracle in `hostio` are both validated against it.
 It depends only on numpy (and optionally jax for the jnp variants).
 """
 

@@ -3,7 +3,7 @@
 The reference never parses .cube itself — it hands the path to FFmpeg's `lut3d`
 filter (reference: src/lut_renderer/ffmpeg.py:246; file dialogs filter `*.cube`,
 src/lut_renderer/lut_manager.py:121). Here the parser is first-party because the
-LUT must live in TPU memory.
+LUT must live in device memory.
 
 Semantics follow the de-facto .cube spec as implemented by FFmpeg's cube reader
 (libavfilter vf_lut3d parse_cube): lines are `#` comments, `TITLE "..."`,

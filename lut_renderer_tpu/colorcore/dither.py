@@ -2,15 +2,16 @@
 
 The reference exposes `zscale=dither=error_diffusion` (src/lut_renderer/
 ffmpeg.py:304-307; param default "none" at models.py:46). True error diffusion
-is a row-recurrent serial algorithm — hostile to TPU vectorization — so the TPU
-build substitutes spatially-stationary dithers applied inside the fused kernel:
+is a row-recurrent serial algorithm — hostile to data-parallel hardware — so
+the device pipeline substitutes spatially-stationary dithers applied inside
+the jitted render step:
 
   * "none":    round-to-nearest quantization;
   * "ordered": 16x16 Bayer threshold matrix (tiled), zero-mean;
   * "random":  per-pixel uniform offsets from a stateless position hash
                (murmur3-finalizer avalanche over (row, col, plane_seed)) —
                stochastic rounding that is bit-reproducible across runs and
-               across the XLA / Pallas / NumPy implementations (a stateful
+               across the XLA / NumPy implementations (a stateful
                PRNG would diverge between them).
 
 The deviation from zscale's error diffusion is deliberate and documented; the

@@ -12,9 +12,9 @@ ffmpeg.py:243-244). Specifically:
   * tetrahedral uses FFmpeg's 6-case decomposition with *strict* comparisons
     (d.r > d.g, etc.) — tie behavior matters for bit-exactness.
 
-These are the golden implementations every TPU kernel is tested against. They
+These are the golden implementations the device path is tested against. They
 are written against an `xp` module (numpy or jax.numpy) so the same code is the
-NumPy oracle and a jit-able JAX fallback.
+NumPy oracle and, traced with jax.numpy, the device LUT core (ops.lut3d).
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ In the reference these conversions happen inside FFmpeg's swscale, steered by th
 policy engine via `scale=in_color_matrix=...:out_color_matrix=...` and
 `in_range=pc:out_range=tv` filter args (reference: src/lut_renderer/ffmpeg.py:
 211-236) plus the matrix whitelist at ffmpeg.py:113-126. Here they are explicit
-float math, shared by the NumPy reference path and the TPU kernels.
+float math, shared by the NumPy reference path and the device pipeline.
 
 Conventions:
   * Code values are float arrays carrying integer code points at bit depth `d`

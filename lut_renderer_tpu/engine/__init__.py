@@ -1,10 +1,10 @@
-"""engine — the streaming executor: decode -> TPU render -> encode.
+"""engine — the streaming executor: decode -> device render -> encode.
 
-This is the TPU build's replacement for the hot loop the reference runs
+This is the rebuild's replacement for the hot loop the reference runs
 inside an external FFmpeg process (reference: src/lut_renderer/
 task_manager.py:145-178 reads FFmpeg stderr while the native binary does the
 pixels). Here the stages are explicit and pipelined: a decode thread fills a
-bounded queue of frame batches, the main thread drives the jitted TPU render
+bounded queue of frame batches, the main thread drives the jitted device render
 function (dispatch is async, so device compute overlaps host decode), and an
 encode thread drains results in order.
 """

@@ -1,7 +1,7 @@
 """Derivation of static pipeline/encoder configs from a RenderSpec + probe.
 
 This is the glue between the pure policy layer (plan.policy — the argv-free
-equivalent of the reference's build_command) and the concrete TPU render op /
+equivalent of the reference's build_command) and the concrete device render op /
 host encoder. Everything here is pure and unit-testable.
 """
 
@@ -43,7 +43,7 @@ def _matrix_from_tags(name: Optional[str]) -> Optional[str]:
 
 
 def derive_render_config(spec: RenderSpec, info: Optional[VideoInfo]) -> RenderConfig:
-    """Map the policy engine's structured filter plan onto the TPU pipeline.
+    """Map the policy engine's structured filter plan onto the device pipeline.
 
     Mirrors the semantics the reference encodes as an FFmpeg -vf chain
     (scale range/matrix -> format -> lut3d -> dither -> format,

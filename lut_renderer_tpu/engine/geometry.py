@@ -3,12 +3,11 @@
 The reference renders whatever users drop in with zero warmup because
 FFmpeg's filter chain is an interpreter — geometry-agnostic by construction
 (reference src/lut_renderer/ffmpeg.py:189-193, 242-247: the lut3d chain
-never mentions a resolution). XLA programs are shape-keyed instead: a
-geometry outside the warmed set used to pay minutes of remote compile
-(measured 620 s for an ad hoc 640x360 web submit, round 4).
+never mentions a resolution). XLA programs are shape-keyed instead, so a
+geometry outside the warmed set pays a compile on its first batch.
 
-The TPU-native answer: round every ad hoc W x H *up* to a small bucket
-ladder, edge-replicate-pad the planes on the HOST (numpy — no device
+Bucketing (LUT_TPU_GEOMETRY=bucket) rounds every ad hoc W x H *up* to a
+small bucket ladder, edge-replicate-pad the planes on the HOST (numpy — no device
 program depends on the ad hoc shape), run the bucket-shaped compiled
 program, and crop the outputs back after readback. `serve --warmup`
 precompiles the ladder, so a never-seen geometry's first batch runs at
@@ -24,12 +23,12 @@ dither offsets — padding only ever extends bottom/right). Resize is the
 one stage whose output depends on the input geometry globally, so resize
 jobs keep exact-shape programs.
 
-Bucket dims: widths are lane multiples (the fused420 kernel then needs no
-internal pad), heights multiples of 16; both even for 4:2:0. The ladder is
-coarse on purpose — each bucket is one compiled program per tier, and ad
-hoc serving is host-(decode/encode)-bound anyway, so padding waste costs
-little; production geometries (1080p/4K/8K) bypass bucketing entirely and
-keep their exact-shape programs.
+Bucket dims: widths are multiples of 128, heights multiples of 16; both
+even for 4:2:0. The ladder is coarse on purpose — each bucket is one
+compiled program, and ad hoc serving is host-(decode/encode)-bound anyway,
+so padding waste costs little; production geometries (1080p/4K/8K) bypass
+bucketing entirely and keep their exact-shape programs. Whether bucketing
+pays on a given device is a measurement; the default runs exact shapes.
 """
 
 from __future__ import annotations
@@ -60,23 +59,19 @@ EXACT_GEOMETRIES = frozenset({(1920, 1080), (3840, 2160), (7680, 4320)})
 
 
 def geometry_mode() -> str:
-    """"auto" (default: bucket on TPU, exact elsewhere — XLA CPU compiles
-    in seconds, so padding small clips up to a bucket would cost real
-    render work for no compile-avoidance), "bucket" (force), or "exact"
-    (force off — the measurement/bit-exact escape hatch). Env
-    LUT_TPU_GEOMETRY; surfaced in `doctor`."""
+    """"auto" (default: exact-shape programs), "bucket" (pad ad hoc
+    geometries onto the ladder), or "exact". Env LUT_TPU_GEOMETRY;
+    surfaced in `doctor`."""
     mode = os.environ.get("LUT_TPU_GEOMETRY", "auto").lower()
     return mode if mode in ("auto", "bucket", "exact") else "auto"
 
 
-def pick_bucket(w: int, h: int,
-                on_tpu: bool = True) -> Optional[Tuple[int, int]]:
+def pick_bucket(w: int, h: int) -> Optional[Tuple[int, int]]:
     """The smallest-area bucket covering (w, h), or None when the geometry
-    should run an exact-shape program: production geometries, shapes that
-    already ARE a bucket, shapes beyond the ladder, mode=exact, or a
-    non-TPU platform under mode=auto."""
-    mode = geometry_mode()
-    if mode == "exact" or (mode == "auto" and not on_tpu):
+    should run an exact-shape program: any geometry unless the mode is
+    "bucket", production geometries, shapes that already ARE a bucket, and
+    shapes beyond the ladder."""
+    if geometry_mode() != "bucket":
         return None
     if (w, h) in EXACT_GEOMETRIES or (w, h) in BUCKETS:
         return None
@@ -109,9 +104,8 @@ def pad_batch_to_bucket(y, u, v, bucket: Tuple[int, int],
         if th == h and tw == w:
             return np.ascontiguousarray(a)
         # manual fill instead of np.pad(mode="edge"): pad's generic path
-        # measured ~0.5 s/4K-batch on this one-core host, ~10x the cost of
-        # the plain copies below (the interior memcpy + two broadcast
-        # edge fills)
+        # is several times slower than the interior memcpy + two broadcast
+        # edge fills below
         out = np.empty(a.shape[:-2] + (th, tw), a.dtype)
         out[..., :h, :w] = a
         if tw > w:

@@ -3,7 +3,7 @@
 Replaces the decode half of the reference's external FFmpeg process
 (src/lut_renderer/task_manager.py:145-151). Emits contiguous planar numpy
 arrays (Y, U, V) at the stream's native bit depth (uint8 / uint16-LE for
-10-bit), plus frame timestamps — exactly the layout the TPU render op wants.
+10-bit), plus frame timestamps — exactly the layout the device render op wants.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from .ffi import (
     get_ffi,
 )
 
-# Planar YUV formats we hand straight to the TPU path:
+# Planar YUV formats we hand straight to the device path:
 # name -> (bit_depth, chroma_w_shift, chroma_h_shift, full_range_legacy)
 _PLANAR_FMTS = {
     "yuv420p": (8, 1, 1, False),

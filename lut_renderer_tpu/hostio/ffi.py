@@ -16,7 +16,11 @@ principles:
    25 fps, 50 frames, yuv420p, mpeg4) before the layer is considered usable.
    A failed check raises FFIUnavailable and callers degrade to cv2 paths.
 
-This is the TPU build's equivalent of the reference's L0 native engine
+The libraries are the ones an opencv-python wheel bundles (the full or the
+headless wheel). libavfilter is optional: the headless wheel leaves it out,
+and only the lut3d oracle and audio resampling need it.
+
+This is the rebuild's equivalent of the reference's L0 native engine
 boundary (SURVEY.md layer map), implemented in-process instead of via argv.
 """
 
@@ -70,11 +74,15 @@ class MediaError(RuntimeError):
 
 
 def _libdir() -> str:
+    """The bundled-library directory of the installed opencv wheel
+    (opencv_python.libs, opencv_python_headless.libs, ...)."""
     import cv2
 
-    return os.path.abspath(
-        os.path.join(os.path.dirname(cv2.__file__), "..", "opencv_python.libs")
-    )
+    site = os.path.join(os.path.dirname(cv2.__file__), "..")
+    dirs = sorted(glob.glob(os.path.join(site, "opencv*.libs")))
+    if not dirs:
+        raise FFIUnavailable(f"no opencv*.libs directory beside {cv2.__file__}")
+    return os.path.abspath(dirs[0])
 
 
 # Raw struct offsets (x86-64). Every one of these is asserted by
@@ -177,12 +185,23 @@ class FFmpegFFI:
         self.avcodec = load("libavcodec-*.so*")
         self.avformat = load("libavformat-*.so*")
         self.swscale = load("libswscale-*.so*")
-        self.avfilter = load("libavfilter-*.so*")
+        try:
+            self._avfilter = load("libavfilter-*.so*")
+            self._avfilter_error = None
+        except FFIUnavailable as exc:
+            self._avfilter, self._avfilter_error = None, exc
         self._declare()
         # Discovered at verify time:
         self.fmt_duration_off: Optional[int] = None
         self.fmt_bit_rate_off: Optional[int] = None
         self._verified = False
+
+    @property
+    def avfilter(self):
+        """libavfilter; raises FFIUnavailable where the wheel lacks it."""
+        if self._avfilter is None:
+            raise self._avfilter_error
+        return self._avfilter
 
     # -- prototypes ---------------------------------------------------------
     def _declare(self):

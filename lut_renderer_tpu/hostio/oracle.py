@@ -5,7 +5,7 @@ The reference applies LUTs exclusively through FFmpeg's lut3d filter
 implementation from the bundled libavfilter via a buffer -> lut3d ->
 buffersink graph, for two purposes:
 
-  * parity: max dE76 between the TPU kernel and lut3d is the headline
+  * parity: max dE76 between the device LUT core and lut3d is the headline
     correctness metric (BASELINE.md) — measured on float planes (gbrpf32)
     so quantization doesn't mask kernel differences;
   * baseline: lut3d's single-core throughput on this host is the measured
@@ -254,7 +254,7 @@ class ChainOracle:
     This is the end-to-end twin of Lut3DOracle (which isolates the kernel on
     RGB planes): it exercises everything the reference delegates to FFmpeg —
     chroma up/down-sampling siting, the fixed-point YUV<->RGB conversions,
-    range normalization, and quantization placement — so the fused TPU
+    range normalization, and quantization placement — so the fused device
     render can be parity-checked against the full reference behavior, not
     just the LUT core (tests/test_chain_parity.py).
 

@@ -1,4 +1,4 @@
-"""Media probing via libavformat — the TPU build's ffprobe replacement.
+"""Media probing via libavformat — the rebuild's ffprobe replacement.
 
 Produces the same VideoInfo contract as the reference's ffprobe-JSON parser
 (src/lut_renderer/media_info.py:113-226): field names, bitrate "<n>k"

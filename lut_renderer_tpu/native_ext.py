@@ -7,7 +7,7 @@ it is never required. Components:
   * ltn_cube_parse: fast .cube parsing straight into [r][g][b] layout
     (~30x faster than the text path for 65^3 LUTs);
   * ltn_dither_ed / ltn_dither_ed_fx: exact Floyd-Steinberg error diffusion
-    (serpentine) — the serial algorithm the TPU's ordered dither substitutes
+    (serpentine) — the serial algorithm the device's ordered dither substitutes
     for; used as the dither quality oracle and as an opt-in host finishing
     pass. _fx is the fixed-point production path (3.1x the float version).
 """

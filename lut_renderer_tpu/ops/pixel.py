@@ -1,8 +1,8 @@
 """Planar pixel ops around the LUT core: YUV<->RGB, chroma resampling, range
 normalization, and dithered quantization — all jnp elementwise/planar ops that
-XLA fuses at memory-bound speed (no Pallas needed; see experiments/FINDINGS.md).
+XLA fuses into memory-bound kernels.
 
-These are the TPU equivalents of what the reference delegates to FFmpeg's
+These are the device equivalents of what the reference delegates to FFmpeg's
 swscale/zscale (`scale=in_range=...:in_color_matrix=...`, `format=...`,
 `zscale=dither=error_diffusion` — src/lut_renderer/ffmpeg.py:211-236, 304-310).
 The math mirrors colorcore.matrices exactly (shared constants via the same
@@ -27,8 +27,8 @@ def yuv_planes_to_rgb(y, u, v, matrix: str = "bt709", depth: int = 8,
     return cm.yuv_to_rgb_planes(y, u, v, matrix, depth, full_range, xp=jnp)
 
 
-def rgb_to_yuv_planes_tpu(r, g, b, matrix: str = "bt709", depth: int = 8,
-                          full_range: bool = False):
+def rgb_to_yuv_planes(r, g, b, matrix: str = "bt709", depth: int = 8,
+                      full_range: bool = False):
     return cm.rgb_to_yuv_planes(r, g, b, matrix, depth, full_range, xp=jnp)
 
 
@@ -75,12 +75,10 @@ def chroma_upsample_420(c, mode: str = "nearest"):
 
 
 def chroma_downsample_420(c):
-    """(H, W) chroma plane -> (H/2, W/2) by 2x2 mean (swscale-style box).
-
-    Lane-axis first, then sublane, via strided adds: the reshape-mean
-    formulation splits the sublane dim and hides a Mosaic relayout costing
-    ~6 ms per 4K plane; this order measures at noise level
-    (experiments/yuv_stage_opt.py)."""
+    """(H, W) chroma plane -> (H/2, W/2) by 2x2 mean (swscale-style box):
+    column pairs first, then row pairs. The add grouping is part of the
+    numerics: the row-phase layout (ops.render) and the NumPy pipeline
+    reference (colorcore.pipeline) use the same order."""
     a = c[..., :, 0::2] + c[..., :, 1::2]
     return (a[..., 0::2, :] + a[..., 1::2, :]) * 0.25
 
@@ -137,7 +135,7 @@ def quantize_plane(x, depth: int, dither: str = "none",
     dither "none": round-to-nearest (floor(x+0.5), FFmpeg convention);
     "ordered": tiled 16x16 Bayer zero-mean offsets added pre-round;
     "random": stateless position-hash uniform offsets (stochastic rounding,
-    no tiling structure). Both are TPU substitutes for zscale's serial
+    no tiling structure). Both are parallel substitutes for zscale's serial
     error diffusion (policy note in plan.policy; exact host ED exists via
     native_ext).
 

@@ -1,102 +1,26 @@
-"""LUT preparation: Lut3D -> MXU-ready matrices + per-LUT precision choice.
+"""LUT preparation: Lut3D -> the device-ready table plus its domain mapping.
 
-The Pallas kernel contracts the (g, b) axes of the LUT jointly on the MXU:
-    T'[col, pixel] = sum_{j,k} Lmat[col, j*N+k] * Wt[j*N+k, pixel]
-so the LUT is prebaked as `Lmat[(c*N + r), (j*N + k)] = lut[r, j, k, c]`
-with the row dim (3N) padded to the int8 sublane tile (32).
-
-Three numeric representations are prebaked:
-  * bf16 hi/lo pair  — "exact": hi + residual halves, table error ~2^-17;
-  * bf16 hi only     — "fast": one matmul, table error 2^-9-relative;
-  * int8 hi/lo pair  — "int8": per-row affine symmetric quantization
-    (q1 = round(L/s1), q2 = round((L - s1*q1)/s2)), table error
-    <= row_max * 1.6e-5, and the MXU runs int8 at 2x bf16 throughput
-    (measured 361-373 vs 165-188 TOPS on v5e — experiments/int8_dot_bench).
-
-precision="auto" resolves to the fastest representation whose SIMULATED
-worst-case error for THIS lut clears the dE76 budget: simulate_mode_error
-replays the kernel's numerics (quantized table planes; the int8 tiers use
-exact f32 post-dot weights — see lut3d._int8_quad_body) in NumPy over a
-dense probe set and returns max dE76 vs the f32 reference. The choice is
-cached per (interp, mode) on the PreparedLut.
-
-Also carries the domain mapping parameters (DOMAIN_MIN/MAX of the .cube file)
-so the apply path can remap inputs exactly like the reference oracle
-(colorcore.interp._prepare).
+The LUT core (ops.lut3d) reads the (N, N, N, 3) float32 table with XLA
+gathers, so preparation only fixes the dtype and carries the DOMAIN_MIN/MAX
+of the .cube file, which the apply path maps inputs through exactly like the
+reference oracle (colorcore.interp._prepare).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass
 
 import numpy as np
 
 from ..colorcore.cube import Lut3D
 
-# dE76 acceptance budget for reduced-precision kernels (BASELINE.json bounds
-# everything at < 0.5; keep a safety margin for on-device f32 reassociation).
-DE76_BUDGET = 0.40
-# The probe-set simulator samples ~2 random points per interpolation cell, so
-# the device-measured worst case can exceed it; gate with this inflation
-# (measured kernel/sim ratios land around 1.2 — tests/test_lut3d_op.py).
-SIM_MARGIN = 1.3
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
 
 @dataclass
 class PreparedLut:
-    lmat: np.ndarray        # (rows_pad, N*N) f32: rows_pad = round_up(3N+1, 32)
-    lmat_hi: np.ndarray     # bf16 high half (ml_dtypes bfloat16)
-    lmat_lo: np.ndarray     # bf16 residual: lmat - f32(lmat_hi)
-    lmat_q1: np.ndarray     # int8 first plane (per-row scale s1)
-    lmat_q2: np.ndarray     # int8 residual plane (per-row scale s2)
-    # Parity-quadrant layout of the stacked [q1; q2] pair: K columns permuted
-    # into (b even/odd) x (g even/odd) blocks, each zero-padded to 32 columns.
-    # Within a quadrant every pixel is ONE-tap in both g and b, so the
-    # kernel's W operand is just a hoisted 0/1 one-hot mask and the exact
-    # f32 weights apply post-dot (lut3d._int8_quad_body): the quadrant dots
-    # are pass-independent and run once per block.
-    lmat_qp: np.ndarray     # (2*rows_pad, K') int8, K' = sum(quad_widths)
-    # Stacked [hi; lo] bf16 pair in the same quadrant layout: the bf16 tiers
-    # ride the identical hoisted-dot structure (bf16 0/1 masks, f32
-    # accumulation). hi + lo reconstructs the table to ~2^-17, and with
-    # exact post-dot weights the "exact" tier's total error is ~1e-6 — no
-    # sum-correction machinery needed.
-    lmat_bf_qp: np.ndarray  # (2*rows_pad, K') bfloat16
-    quad_widths: Tuple[int, int, int, int]  # (ee, eo, oe, oo) padded widths
-    scale_q1: np.ndarray    # (rows_pad, 1) f32, includes the 1/254 weight norm
-    scale_q2: np.ndarray    # (rows_pad, 1) f32
-    bias_q: np.ndarray      # (rows_pad, 1) f32 (legacy offset-weight bias;
-                            # unused since the hoisted-dot restructure)
+    table: np.ndarray       # (N, N, N, 3) float32
     size: int               # N
-    rows_pad: int           # padded row count (output dim of the matmul)
-    ones_row: int           # row index of the all-ones sum-correction row (3N)
-    domain_min: np.ndarray  # (3,) f32
-    domain_max: np.ndarray  # (3,) f32
-    table: np.ndarray       # original (N, N, N, 3) f32 (for fallback paths)
-    # Coarse + residual decomposition for large LUTs (N >= 49, odd N):
-    # interpolation is LINEAR in the table, so L = U(C) + R splits the
-    # evaluation into a coarse term at (N+1)/2-grid cost (per-axis tap remap,
-    # exact because the trilinear upsample U is separable) plus a residual
-    # term whose tiny magnitude rides a single-plane int8 matmul.
-    coarse: Optional["PreparedLut"] = None
-    resid_q: Optional[np.ndarray] = None       # (rows_pad, N^2) int8
-    resid_scale: Optional[np.ndarray] = None   # (rows_pad, 1) f32, 1/254 fold
-    resid_bias: Optional[np.ndarray] = None    # (rows_pad, 1) f32
-    resid_qp: Optional[np.ndarray] = None      # quad_permute(resid_q)
-    resid_quad_widths: Optional[Tuple[int, int, int, int]] = None
-    # content hash for the persistent tier-gate cache (tiergate_cache.py)
-    gate_key: str = ""
-    _mode_errors: Dict[Tuple[str, str, int], float] = field(default_factory=dict)
-    _auto_cache: Dict[str, str] = field(default_factory=dict)
-    # lazily built, mode-independent simulator state (probe geometry, exact
-    # reference, identity/residual terms) shared across the ladder walk —
-    # see _sim_geom and friends below
-    _sim_cache: Dict = field(default_factory=dict)
+    domain_min: np.ndarray  # (3,) float32
+    domain_max: np.ndarray  # (3,) float32
 
     @property
     def has_unit_domain(self) -> bool:
@@ -104,670 +28,12 @@ class PreparedLut:
             np.allclose(self.domain_min, 0.0) and np.allclose(self.domain_max, 1.0)
         )
 
-    # -- per-LUT precision resolution ----------------------------------------
-    def mode_error(self, interp: str, mode: str, probes: int = 60_000) -> float:
-        """Simulated worst-case dE76 of `mode` vs the f32 reference for this
-        LUT under `interp` (cached in-memory and, keyed by LUT content hash,
-        persistently across processes — tiergate_cache.py)."""
-        key = (interp, mode, probes)
-        if key not in self._mode_errors:
-            persist_key = f"{interp}:{mode}:{probes}"
-            stored = self._persisted_errors()
-            if persist_key in stored:
-                self._mode_errors[key] = stored[persist_key]
-                return self._mode_errors[key]
-            if mode.startswith("coarse2"):
-                if self.coarse is None:
-                    return float("inf")
-                resid_interp = ("trilinear" if mode.endswith("_tri")
-                                else interp)
-                coarse_mode = ("exact" if mode.startswith("coarse2x")
-                               else "fast" if mode.startswith("coarse2f")
-                               else "int8_fast")
-                self._mode_errors[key] = simulate_coarse_error(
-                    self, interp, resid_interp, coarse_mode, probes=probes
-                )
-            else:
-                self._mode_errors[key] = simulate_mode_error(
-                    self, interp, mode, probes=probes
-                )
-            if np.isfinite(self._mode_errors[key]) and self.gate_key:
-                from . import tiergate_cache
 
-                tiergate_cache.store_errors(
-                    self.gate_key, {persist_key: self._mode_errors[key]})
-        return self._mode_errors[key]
-
-    def _persisted_errors(self) -> Dict[str, float]:
-        if not self.gate_key:
-            return {}
-        if "persist" not in self._sim_cache:
-            from . import tiergate_cache
-
-            self._sim_cache["persist"] = tiergate_cache.load_errors(self.gate_key)
-        return self._sim_cache["persist"]
-
-    def resolve_precision(self, interp: str, requested: str = "auto",
-                          budget: float = DE76_BUDGET) -> str:
-        """Map a requested precision to a concrete kernel mode.
-
-        "auto" walks the tiers in measured-cost order and picks the first
-        whose simulated per-LUT error clears the budget. Since the
-        hoisted-dot restructure the int8 tiers carry NO weight quantization
-        (weights are exact f32 post-dot factors): "int8_lite" is the q1
-        plane alone (half the dot; table error detrended-rowmax/254 —
-        gates in for typical grading LUTs), "int8_fast" adds the q2
-        refinement plane (near-exact, ~rowmax*1.6e-5; gates in for
-        essentially every LUT, any interp — including pyramid's negative
-        weights). "int8" is a kept alias of "int8_fast"; the "_tri"
-        residual-substitution tiers remain accepted but have no speed
-        advantage anymore and left the ladder."""
-        if requested != "auto":
-            return requested
-        cached = self._auto_cache.get(interp)
-        if cached is not None:
-            return cached
-        from .lut3d import tier_fits_vmem
-        # measured 4K cost order on v5e (ms, 33^3 tetra, round-3
-        # i32-select masks + block sweep): int8_lite 15.9 < fast 16.5 <
-        # int8_fast 20.0 < exact. All tables are identity-detrended;
-        # int8_lite errs at detrended-rowmax/254 (~2x "fast"'s 2^-9 of the
-        # grading delta) and still clears the gate for typical looks, so
-        # the ladder tries it first — fastest-that-gates, as documented.
-        ladder = ["int8_lite", "fast", "int8_fast"]
-        if self.coarse is not None:
-            # N >= 49 cost order re-measured round 3 at 4K/65^3 tetra
-            # (experiments/r3_65cube_ablate.py, swept blocks): DIRECT
-            # single-plane int8_lite 60.2 ms < merged coarse2f 71.3 <
-            # coarse2 85 < fast 92 < int8_fast 107 — the one-plane dot
-            # over the full fine table beats the coarse+residual pair of
-            # dots whenever its detrended-rowmax/254 table error clears
-            # the gate. Coarse-term numerics: "f" = detrended bf16-hi,
-            # "" = int8 pair, "x" = detrended bf16 pair. (int4-residual
-            # "coarse2q" was built and measured ~equal; reverted, see
-            # FINDINGS.)
-            ladder = ["int8_lite", "coarse2f", "coarse2", "fast",
-                      "int8_fast", "coarse2x"]
-        # N >= 97 class: tiers whose resident operands cannot fit VMEM can
-        # never launch — the ladder walks only fitting tiers (at N=129
-        # that's int8_lite/coarse2f/coarse2; lut3d.tier_vmem_bytes).
-        ladder = [m for m in ladder if tier_fits_vmem(self, interp, m)]
-        if tier_fits_vmem(self, interp, "exact"):
-            choice = "exact"
-        elif ladder:
-            # nothing may clear the budget (pathological LUT): fall back
-            # to the most accurate tier that can actually launch
-            choice = min(ladder, key=lambda m: self.mode_error(interp, m))
-        else:  # no kernel tier fits at all: the XLA gather path takes over
-            choice = "gather"
-        for mode in ladder:
-            if self.mode_error(interp, mode) * SIM_MARGIN <= budget:
-                choice = mode
-                break
-        self._auto_cache[interp] = choice
-        # the shared simulator scratch (probe geometry, f64 ref/ident/resid
-        # terms, tap stacks — tens of MB at 74k probes) is only useful
-        # DURING a ladder walk; the gate RESULTS live in _mode_errors and
-        # the persistent cache. Drop the scratch so warm daemons caching
-        # PreparedLuts (tasks.runner._LUT_CACHE) don't retain it.
-        self._drop_sim_scratch()
-        return choice
-
-    def _drop_sim_scratch(self) -> None:
-        persist = self._sim_cache.get("persist")
-        self._sim_cache.clear()
-        if persist is not None:
-            self._sim_cache["persist"] = persist
-
-
-def _identity_lmat(n: int, rows_pad: int) -> np.ndarray:
-    """The identity table in lmat layout (imat[c*N + r, k*N + j] = grid
-    coordinate of channel c at (r, j, k), unit grid). The int8 planes store
-    the DETRENDED matrix lmat - imat: interpolation is linear in the table,
-    and the identity part is evaluated analytically in-kernel from the exact
-    f32 tap weights (lut3d._int8_quad_body), so the weight-LSB error only
-    multiplies the detrended table's cell-local spread — ~40% lower dE76 on
-    grading-style LUTs (measured; pathological anti-identity LUTs get
-    strictly worse and the per-LUT gate rejects them). The ones row is not
-    detrended (imat row 3N = 0)."""
-    ramp = (np.arange(n, dtype=np.float32) / (n - 1)).astype(np.float32)
-    imat = np.zeros((rows_pad, n * n), dtype=np.float32)
-    # c = 0: value r/(n-1), constant per row
-    imat[0:n] = ramp[:, None]
-    # c = 1: value j/(n-1); columns are k*N + j
-    imat[n:2 * n] = np.tile(ramp, n)[None, :]
-    # c = 2: value k/(n-1)
-    imat[2 * n:3 * n] = np.repeat(ramp, n)[None, :]
-    return imat
-
-
-def _int8_pair(lmat: np.ndarray, ones_row: int):
-    """Per-row symmetric hi/lo int8 quantization of the LUT matrix.
-
-    Scales are stored FOLDED by 1/254 (a convention kept from the retired
-    in-dot offset-weight coding; lut3d._unfolded_pair_scales restores the
-    raw per-row dequant scales for the hoisted-dot kernel, whose W operand
-    is a 0/1 mask). The bias row is likewise legacy and unused by the
-    kernel. Table error of the pair: <= rowmax * 1.6e-5 (near-exact)."""
-    absmax = np.abs(lmat).max(axis=1, keepdims=True)
-    s1 = absmax / 127.0
-    safe1 = np.where(s1 > 0, s1, 1.0)
-    q1 = np.clip(np.round(lmat / safe1), -127, 127).astype(np.int8)
-    r = lmat - s1 * q1
-    rmax = np.abs(r).max(axis=1, keepdims=True)
-    s2 = rmax / 127.0
-    safe2 = np.where(s2 > 0, s2, 1.0)
-    q2 = np.clip(np.round(r / safe2), -127, 127).astype(np.int8)
-    s1f = (s1 / 254.0).astype(np.float32)   # folded dequant scales
-    s2f = (s2 / 254.0).astype(np.float32)
-    rs1 = q1.astype(np.float64).sum(axis=1, keepdims=True)
-    rs2 = q2.astype(np.float64).sum(axis=1, keepdims=True)
-    bias = (127.0 * (s1f * rs1 + s2f * rs2)).astype(np.float32)
-    return q1, q2, s1f, s2f, bias
-
-
-def quad_permute(mat: np.ndarray, n: int, pad: int = 32):
-    """Permute (rows, N*N) columns (K index = k*N + j, k = b-plane, j = g)
-    into four parity quadrants (b even/odd x g even/odd), b-major/g-minor
-    within each, zero-padded per quadrant to a multiple of 32 columns (int8
-    sublane-tile granularity, so the kernel's per-quadrant tiles concat/dot
-    cleanly). Returns (permuted, widths)."""
-    rows = mat.shape[0]
-    blocks = []
-    widths = []
-    for bs in (0, 1):
-        for gs in (0, 1):
-            ks = np.arange(bs, n, 2)
-            js = np.arange(gs, n, 2)
-            kk, jj = np.meshgrid(ks, js, indexing="ij")
-            idx = (kk * n + jj).reshape(-1)
-            w = _round_up(len(idx), pad)
-            block = np.zeros((rows, w), mat.dtype)
-            block[:, : len(idx)] = mat[:, idx]
-            blocks.append(block)
-            widths.append(w)
-    return np.concatenate(blocks, axis=1), tuple(widths)
-
-
-def _upsample2_linear(c: np.ndarray) -> np.ndarray:
-    """Separable linear upsample of an (M, M, M, 3) grid to (2M-1, ...):
-    even fine samples coincide with coarse points, odd ones are axis
-    midpoints. Separability is what makes the coarse-term tap remap exact."""
-    for axis in range(3):
-        m = c.shape[axis]
-        shape = list(c.shape)
-        shape[axis] = 2 * m - 1
-        out = np.zeros(shape, c.dtype)
-        even = [slice(None)] * 4
-        even[axis] = slice(0, None, 2)
-        out[tuple(even)] = c
-        odd = [slice(None)] * 4
-        odd[axis] = slice(1, None, 2)
-        lo = [slice(None)] * 4
-        lo[axis] = slice(0, m - 1)
-        hi = [slice(None)] * 4
-        hi[axis] = slice(1, m)
-        out[tuple(odd)] = 0.5 * (c[tuple(lo)] + c[tuple(hi)])
-        c = out
-    return c
-
-
-def _lmat_from_table(table: np.ndarray, rows_pad: int) -> np.ndarray:
-    n = table.shape[0]
-    rows = 3 * n
-    lmat = np.zeros((rows_pad, n * n), dtype=np.float32)
-    lmat[:rows] = table.transpose(3, 0, 2, 1).reshape(rows, n * n)
-    lmat[rows] = 1.0
-    return lmat
-
-
-def _int8_single(lmat: np.ndarray):
-    """Per-row symmetric single-plane int8 (for small-magnitude residuals:
-    error <= rowmax/254, negligible when rowmax ~ 1e-2). Scales stored
-    folded by 1/127 (legacy convention; the launcher unfolds). Bias row is
-    zero and unused."""
-    absmax = np.abs(lmat).max(axis=1, keepdims=True)
-    s = absmax / 127.0
-    safe = np.where(s > 0, s, 1.0)
-    q = np.clip(np.round(lmat / safe), -127, 127).astype(np.int8)
-    sf = (s / 127.0).astype(np.float32)
-    bias = np.zeros_like(sf)
-    return q, sf, bias
-
-
-def prepare_lut(lut: Lut3D, force_coarse: bool = False) -> PreparedLut:
-    """Prebake every kernel representation. force_coarse builds the coarse+
-    residual decomposition below the usual N >= 49 threshold (used for the
-    NESTED level of the 3-term 65 -> 33 -> 17 recursion)."""
-    import ml_dtypes
-
-    table = np.asarray(lut.table, dtype=np.float32)
-    n = table.shape[0]
-    rows = 3 * n
-    # pad to the int8 sublane tile (32): the strictest of the three plane
-    # dtypes (f32 needs 8, bf16 16). Round-1 used 128 out of caution; 32
-    # verified identical results and cuts the dominant dot's row count
-    # (N=65: 256 -> 224 rows, -12.5% MXU time on the residual term)
-    rows_pad = _round_up(rows + 1, 32)
-    # lmat[c*N + r, k*N + j] = table[r, j, k, c]; row 3N is all-ones so the
-    # matmul also returns each pixel's actual weight-column sum (used to
-    # cancel weight rounding in the kernel). Column order is b-major /
-    # g-minor so the kernel can build the g-factor of the weight outer
-    # product as a native tile (pltpu.repeat) — see lut3d._pass_kernel.
-    lmat = np.zeros((rows_pad, n * n), dtype=np.float32)
-    # table axes: (r, j, k, c) -> want (c, r, k, j) -> reshape (3N, N*N)
-    lmat[:rows] = table.transpose(3, 0, 2, 1).reshape(rows, n * n)
-    lmat[rows] = 1.0
-    hi = lmat.astype(ml_dtypes.bfloat16)
-    lo = (lmat - hi.astype(np.float32)).astype(ml_dtypes.bfloat16)
-    # the quantized planes (int8 AND bf16) hold the identity-DETRENDED
-    # matrix (see _identity_lmat); bf16 error is relative, so detrending
-    # shrinks "fast"'s absolute error to 2^-9 of the grading delta
-    detr = lmat - _identity_lmat(n, rows_pad)
-    q1, q2, s1, s2, bias = _int8_pair(detr, rows)
-    qp, quad_widths = quad_permute(
-        np.concatenate([q1, q2], axis=0).astype(np.int8), n)
-    hi_d = detr.astype(ml_dtypes.bfloat16)
-    lo_d = (detr - hi_d.astype(np.float32)).astype(ml_dtypes.bfloat16)
-    bf_qp, _ = quad_permute(
-        np.concatenate([hi_d, lo_d], axis=0).astype(ml_dtypes.bfloat16), n)
-
-    coarse = resid_q = resid_scale = resid_bias = None
-    resid_qp = resid_quad_widths = None
-    if (n >= 49 or force_coarse) and n % 2 == 1 and n >= 9:
-        c_table = np.ascontiguousarray(table[::2, ::2, ::2])
-        resid = table - _upsample2_linear(c_table)
-        coarse = prepare_lut(
-            Lut3D(table=c_table, title=lut.title,
-                  domain_min=np.asarray(lut.domain_min, np.float32),
-                  domain_max=np.asarray(lut.domain_max, np.float32))
-        )
-        resid_lmat = _lmat_from_table(resid, rows_pad)
-        resid_q, resid_scale, resid_bias = _int8_single(resid_lmat)
-        resid_qp, resid_quad_widths = quad_permute(resid_q, n)
-
-    from .tiergate_cache import lut_gate_key
-
+def prepare_lut(lut: Lut3D) -> PreparedLut:
+    table = np.ascontiguousarray(lut.table, dtype=np.float32)
     return PreparedLut(
-        lmat=lmat,
-        lmat_hi=hi,
-        lmat_lo=lo,
-        lmat_q1=q1,
-        lmat_q2=q2,
-        lmat_qp=qp,
-        lmat_bf_qp=bf_qp,
-        quad_widths=quad_widths,
-        scale_q1=s1,
-        scale_q2=s2,
-        bias_q=bias,
-        size=n,
-        rows_pad=rows_pad,
-        ones_row=rows,
+        table=table,
+        size=table.shape[0],
         domain_min=np.asarray(lut.domain_min, np.float32),
         domain_max=np.asarray(lut.domain_max, np.float32),
-        table=table,
-        coarse=coarse,
-        resid_q=resid_q,
-        resid_scale=resid_scale,
-        resid_bias=resid_bias,
-        resid_qp=resid_qp,
-        resid_quad_widths=resid_quad_widths,
-        gate_key=lut_gate_key(table, lut.domain_min, lut.domain_max),
     )
-
-
-# ---------------------------------------------------------------------------
-# NumPy replay of the kernel numerics (per-LUT precision gating)
-# ---------------------------------------------------------------------------
-
-def _probe_points(n: int, probes: int, rng_seed: int = 7) -> np.ndarray:
-    """Probe RGB inputs: all cell centers of the finest risky region plus
-    uniform random points — covers every interpolation cell for N<=33-ish
-    probe budgets and samples the rest densely."""
-    rng = np.random.default_rng(rng_seed)
-    pts = [rng.uniform(0.0, 1.0, (probes, 3)).astype(np.float32)]
-    # cell centers and near-corner points stress max-weight configurations
-    grid = (np.arange(n - 1, dtype=np.float32) + 0.5) / (n - 1)
-    k = min(n - 1, 24)
-    sel = grid[np.linspace(0, n - 2, k).astype(int)]
-    gx, gy, gz = np.meshgrid(sel, sel, sel, indexing="ij")
-    pts.append(np.stack([gx, gy, gz], -1).reshape(-1, 3).astype(np.float32))
-    return np.concatenate(pts, axis=0)
-
-
-def _np_tap_weights(interp: str, d: np.ndarray):
-    """Per-pass (wp, wn) tap stacks per axis, mirroring lut3d._passes_for_interp.
-    d: (P, 3) fractional deltas. Returns list of (P, 3, 2) arrays."""
-    dr, dg, db = d[:, 0], d[:, 1], d[:, 2]
-    ones = np.ones_like(dr)
-    zeros = np.zeros_like(dr)
-
-    def stack(*cols):  # cols: wr_p, wr_n, wg_p, wg_n, wb_p, wb_n
-        return np.stack(cols, axis=1).reshape(-1, 3, 2)
-
-    if interp == "nearest":
-        hits = [(dx >= 0.5).astype(np.float32) for dx in (dr, dg, db)]
-        return [stack(1 - hits[0], hits[0], 1 - hits[1], hits[1],
-                      1 - hits[2], hits[2])]
-    if interp == "trilinear":
-        return [stack(1 - dr, dr, 1 - dg, dg, 1 - db, db)]
-    if interp == "tetrahedral":
-        rg, gb, rb = dr > dg, dg > db, dr > db
-        bg, br = db > dg, db > dr
-        m1, m2 = rg & gb, rg & ~gb & rb
-        m3, m4, m5 = rg & ~gb & ~rb, ~rg & bg, ~rg & ~bg & br
-        m6 = ~rg & ~bg & ~br
-        is_max = np.stack([m1 | m2, m5 | m6, m3 | m4], 1)
-        is_min = np.stack([m4 | m5, m2 | m3, m1 | m6], 1)
-        dmax = np.where(is_max[:, 0], dr, np.where(is_max[:, 1], dg, db))
-        dmin = np.where(is_min[:, 0], dr, np.where(is_min[:, 1], dg, db))
-        dmid = dr + dg + db - dmax - dmin
-        p1 = np.empty((len(dr), 3, 2), np.float32)
-        p2 = np.empty((len(dr), 3, 2), np.float32)
-        for ax in range(3):
-            p1[:, ax, 0] = np.where(is_max[:, ax], 1 - dmax, 1.0)
-            p1[:, ax, 1] = np.where(is_max[:, ax], dmax - dmid, 0.0)
-            p2[:, ax, 0] = np.where(is_min[:, ax], dmid - dmin, 0.0)
-            p2[:, ax, 1] = np.where(is_min[:, ax], dmin, 1.0)
-        return [p1, p2]
-    if interp == "pyramid":
-        m1 = (dg > dr) & (db > dr)
-        m2 = (dr > dg) & (db > dg)
-        is_x = np.stack([m1, m2 & ~m1, ~m1 & ~m2], 1)
-        d3 = np.stack([dr, dg, db], 1)
-        p1 = np.empty((len(dr), 3, 2), np.float32)
-        p2 = np.empty((len(dr), 3, 2), np.float32)
-        for ax in range(3):
-            p1[:, ax, 0] = np.where(is_x[:, ax], 1.0, 1 - d3[:, ax])
-            p1[:, ax, 1] = np.where(is_x[:, ax], 0.0, d3[:, ax])
-            p2[:, ax, 0] = np.where(is_x[:, ax], -d3[:, ax], 0.0)
-            p2[:, ax, 1] = np.where(is_x[:, ax], d3[:, ax], 1.0)
-        return [p1, p2]
-    if interp == "prism":
-        m = db > dr
-        p1 = stack(ones, zeros, 1 - dg, dg,
-                   np.where(m, 1 - db, 1 - dr), np.where(m, db - dr, 0.0))
-        p2 = stack(zeros, ones, 1 - dg, dg,
-                   np.where(m, 0.0, dr - db), np.where(m, dr, db))
-        return [p1, p2]
-    raise ValueError(f"unknown interp {interp!r}")
-
-
-def _flat_corner_idx(p: np.ndarray, nx: np.ndarray, n: int) -> np.ndarray:
-    """(P, 2, 2, 2) flat indices of each probe's 2x2x2 cell corners into an
-    (N^3, 3)-flattened table — one fancy gather replaces the former 8-gather
-    corner loop (the simulator's dominant cost on this box's single core)."""
-    ri = np.stack([p[:, 0], nx[:, 0]], axis=1)  # (P, 2)
-    gi = np.stack([p[:, 1], nx[:, 1]], axis=1)
-    bi = np.stack([p[:, 2], nx[:, 2]], axis=1)
-    return (ri[:, :, None, None] * (n * n)
-            + gi[:, None, :, None] * n
-            + bi[:, None, None, :])
-
-
-def _gather8(table: np.ndarray, idx8: np.ndarray) -> np.ndarray:
-    """(P, 2, 2, 2, 3) cell corners of an (N, N, N, 3) table via flat idx."""
-    return table.reshape(-1, 3)[idx8]
-
-
-def _sim_geom(prep: PreparedLut, probes: int):
-    """Probe geometry shared by every mode of a ladder walk: points, prev
-    indices, fractional deltas, and the flat corner-gather indices."""
-    key = ("geom", probes)
-    if key not in prep._sim_cache:
-        n = prep.size
-        pts = _probe_points(n, probes)
-        s = np.clip(pts, 0, 1) * (n - 1)
-        p = np.minimum(np.floor(s).astype(np.int64), n - 1)
-        nx = np.minimum(p + 1, n - 1)
-        d = (s - p).astype(np.float32)
-        prep._sim_cache[key] = (pts, p, d, _flat_corner_idx(p, nx, n))
-    return prep._sim_cache[key]
-
-
-def _sim_taps(prep: PreparedLut, interp: str, probes: int):
-    key = ("taps", interp, probes)
-    if key not in prep._sim_cache:
-        _, _, d, _ = _sim_geom(prep, probes)
-        prep._sim_cache[key] = _np_tap_weights(interp, d)
-    return prep._sim_cache[key]
-
-
-def _sim_ref(prep: PreparedLut, interp: str, probes: int) -> np.ndarray:
-    """Exact f32 interpolation of the full table — the comparison baseline,
-    identical for every mode under a given interp."""
-    key = ("ref", interp, probes)
-    if key not in prep._sim_cache:
-        _, _, _, idx8 = _sim_geom(prep, probes)
-        prep._sim_cache[key] = _sim_passes(
-            _gather8(prep.table, idx8), _sim_taps(prep, interp, probes))
-    return prep._sim_cache[key]
-
-
-def _sim_ident(prep: PreparedLut, interp: str, probes: int) -> np.ndarray:
-    """The in-kernel exact identity term (every reduced tier stores the
-    identity-DETRENDED table) — mode-independent, cached per interp."""
-    key = ("ident", interp, probes)
-    if key not in prep._sim_cache:
-        _, _, _, idx8 = _sim_geom(prep, probes)
-        prep._sim_cache[key] = _sim_passes(
-            _gather8(_identity_table(prep.size), idx8),
-            _sim_taps(prep, interp, probes))
-    return prep._sim_cache[key]
-
-
-def simulate_mode_error(prep: PreparedLut, interp: str, mode: str,
-                        probes: int = 60_000) -> float:
-    """Replay the kernel's reduced-precision numerics in NumPy and return the
-    max dE76 vs the exact f32 result over a dense probe set.
-
-    Faithful to the hoisted-dot kernel: every reduced tier stores a
-    quantized DETRENDED table ("fast" = bf16-rounded, int8 tiers = one or
-    two int8 planes) and applies EXACT f32 corner weights post-dot, so the
-    only modeled error is the quantized table (the in-kernel identity term
-    is exact and added separately). The int32/f32 accumulations themselves
-    are exact, so NumPy f64 replay is a faithful upper-level model.
-
-    Everything mode-independent (probe geometry, tap weights, the exact
-    reference, the identity term) is computed once per (interp, probes) and
-    cached on the PreparedLut, so a ladder walk pays one quantized-table
-    gather + contraction per extra tier tried."""
-    from ..colorcore.metrics import max_delta_e76
-
-    if mode == "exact":
-        return 0.0
-    n = prep.size
-    _, _, _, idx8 = _sim_geom(prep, probes)
-    rows = 3 * n
-
-    if mode == "fast":
-        import ml_dtypes as _mld
-
-        # the kernel's "fast" table is the bf16-rounded DETRENDED matrix
-        # (identity added back exactly in-kernel); reconstruct likewise
-        detr = prep.lmat[:rows] - _identity_lmat(n, prep.rows_pad)[:rows]
-        qt_flat = detr.astype(_mld.bfloat16).astype(np.float32)
-    elif mode in ("int8", "int8_fast", "int8_lite"):
-        s1 = prep.scale_q1[:rows] * 254.0   # (rows, 1), undo the /254 fold
-        s2 = prep.scale_q2[:rows] * 254.0
-        # the int8 planes hold the identity-DETRENDED table; the kernel adds
-        # the identity term from exact f32 weights — modelled via the cached
-        # _sim_ident term. "int8_lite" drops the q2 refinement plane (half
-        # the dot, rowmax/254 table error).
-        qt_flat = prep.lmat_q1[:rows].astype(np.float32) * s1
-        if mode != "int8_lite":
-            qt_flat = qt_flat + prep.lmat_q2[:rows].astype(np.float32) * s2
-    else:
-        raise ValueError(f"unknown mode {mode!r}")
-
-    # (c, r, k, j) -> (r, j, k, c) table layout for the corner gather
-    qt = qt_flat.reshape(3, n, n, n).transpose(1, 3, 2, 0)
-    taps = _sim_taps(prep, interp, probes)
-    got = _sim_passes(_gather8(qt, idx8), taps)
-    got = got + _sim_ident(prep, interp, probes)
-    ref = _sim_ref(prep, interp, probes)
-    return float(max_delta_e76(
-        np.clip(ref, 0, 1).astype(np.float32),
-        np.clip(got, 0, 1).astype(np.float32),
-    ))
-
-
-def _identity_table(n: int) -> np.ndarray:
-    ramp = (np.arange(n, dtype=np.float32) / (n - 1)).astype(np.float32)
-    r, g, b = np.meshgrid(ramp, ramp, ramp, indexing="ij")
-    return np.stack([r, g, b], axis=-1)
-
-
-# ---------------------------------------------------------------------------
-# Coarse + residual decomposition helpers (N >= 49)
-# ---------------------------------------------------------------------------
-
-def remap_taps_to_coarse_np(p: np.ndarray, wp: np.ndarray, wn: np.ndarray):
-    """Per-axis remap of fine 2-tap weights onto the (N+1)/2 coarse grid.
-
-    Fine prev index p with taps (wp at p, wn at p+1); coarse cell i = p//2.
-    p even: fine p IS coarse i, fine p+1 is the axis midpoint ->
-            coarse taps (wp + wn/2, wn/2).
-    p odd:  fine p is the midpoint, fine p+1 IS coarse i+1 ->
-            coarse taps (wp/2, wp/2 + wn).
-    Tap sums are preserved, so the kernel's sum-correction row and the pass
-    decomposition are unchanged. Exact because the upsample is separable
-    linear (each fine corner is a per-axis linear blend of coarse corners).
-    """
-    even = (p % 2) == 0
-    ic = p // 2
-    wpc = np.where(even, wp + 0.5 * wn, 0.5 * wp)
-    wnc = np.where(even, 0.5 * wn, 0.5 * wp + wn)
-    return ic, wpc, wnc
-
-
-def _sim_passes(cells: np.ndarray, passes):
-    """f64 contraction of (P, 2, 2, 2, 3) cell corners with per-pass tap
-    weight outer products — exact weights throughout (the hoisted-dot
-    kernel applies f32 weights post-dot; no weight quantization exists)."""
-    acc = np.zeros((cells.shape[0], 3), np.float64)
-    for taps in passes:  # (P, 3, 2)
-        gb = taps[:, 1, :, None] * taps[:, 2, None, :]
-        w_full = taps[:, 0, :, None, None] * gb[:, None, :, :]
-        acc += np.einsum("pabc,pabcx->px", w_full, cells)
-    return acc
-
-
-def _sim_coarse_geom(prep: PreparedLut, probes: int):
-    """Coarse-grid prev indices (ic = p // 2, interp-independent) and their
-    flat corner-gather indices."""
-    key = ("cgeom", probes)
-    if key not in prep._sim_cache:
-        _, p, _, _ = _sim_geom(prep, probes)
-        m = prep.coarse.size
-        ic = p // 2
-        nxc = np.minimum(ic + 1, m - 1)
-        prep._sim_cache[key] = (ic, _flat_corner_idx(ic, nxc, m))
-    return prep._sim_cache[key]
-
-
-def _sim_coarse_taps(prep: PreparedLut, interp: str, probes: int):
-    """Fine tap weights remapped onto the coarse grid (exact, separable)."""
-    key = ("ctaps", interp, probes)
-    if key not in prep._sim_cache:
-        _, p, _, _ = _sim_geom(prep, probes)
-        coarse_passes = []
-        for taps in _sim_taps(prep, interp, probes):
-            ct = np.empty_like(taps)
-            for ax in range(3):
-                _, ct[:, ax, 0], ct[:, ax, 1] = remap_taps_to_coarse_np(
-                    p[:, ax], taps[:, ax, 0], taps[:, ax, 1]
-                )
-            coarse_passes.append(ct)
-        prep._sim_cache[key] = coarse_passes
-    return prep._sim_cache[key]
-
-
-def _sim_coarse_ident(prep: PreparedLut, interp: str, probes: int):
-    key = ("cident", interp, probes)
-    if key not in prep._sim_cache:
-        _, idx8c = _sim_coarse_geom(prep, probes)
-        prep._sim_cache[key] = _sim_passes(
-            _gather8(_identity_table(prep.coarse.size), idx8c),
-            _sim_coarse_taps(prep, interp, probes))
-    return prep._sim_cache[key]
-
-
-def _sim_resid_term(prep: PreparedLut, resid_interp: str, probes: int):
-    """The residual term at single-plane int8 numerics — depends only on
-    the residual interp (the _tri substitution), not the coarse mode."""
-    key = ("resid", resid_interp, probes)
-    if key not in prep._sim_cache:
-        n = prep.size
-        rows_f = 3 * n
-        _, _, _, idx8 = _sim_geom(prep, probes)
-        sr = prep.resid_scale[:rows_f] * 127.0
-        r_table = (prep.resid_q[:rows_f].astype(np.float32) * sr).reshape(
-            3, n, n, n).transpose(1, 3, 2, 0)
-        prep._sim_cache[key] = _sim_passes(
-            _gather8(r_table, idx8),
-            _sim_taps(prep, resid_interp, probes))
-    return prep._sim_cache[key]
-
-
-def simulate_coarse_error(prep: PreparedLut, interp: str, resid_interp: str,
-                          coarse_mode: str = "int8_fast",
-                          probes: int = 60_000) -> float:
-    """Worst-case dE76 of the coarse+residual evaluation vs the exact f32
-    interpolation: coarse term at `coarse_mode` numerics ("int8_fast" or
-    "exact" bf16-pair, which this sim treats as error-free) on the (N+1)/2
-    grid (remapped taps), residual term at single-plane int8 numerics with
-    `resid_interp` (the trilinear substitution for tetrahedral is what this
-    sim gates — exactness of the substitution depends on the residual's
-    cell-local spread, a per-LUT property).
-
-    The reference, remapped taps, coarse identity term, and residual term
-    are all coarse-mode-independent and cached on the PreparedLut; each
-    coarse tier tried costs one coarse-table gather + contraction."""
-    import ml_dtypes as _mld
-
-    from ..colorcore.metrics import max_delta_e76
-
-    ref = _sim_ref(prep, interp, probes)
-
-    # term 1: coarse grid, remapped taps
-    cp = prep.coarse
-    m = cp.size
-    rows_c = 3 * m
-    detr_c = cp.lmat[:rows_c] - _identity_lmat(m, cp.rows_pad)[:rows_c]
-    if coarse_mode == "exact":
-        # detrended bf16 hi/lo pair (~2^-17) + exact in-kernel identity;
-        # weights exact post-dot — the coarse term is essentially
-        # error-free
-        hi_d = detr_c.astype(_mld.bfloat16).astype(np.float32)
-        lo_d = (detr_c - hi_d).astype(_mld.bfloat16).astype(np.float32)
-        c_quant = hi_d + lo_d
-    elif coarse_mode == "fast":
-        # detrended bf16-hi-only (2^-9 of the grading delta); weights
-        # exact post-dot
-        c_quant = detr_c.astype(_mld.bfloat16).astype(np.float32)
-    else:
-        # int8 pair with exact post-dot weights (hoisted-dot structure):
-        # the only coarse-term error is the quantized (detrended) table
-        sc1 = cp.scale_q1[:rows_c] * 254.0
-        sc2 = cp.scale_q2[:rows_c] * 254.0
-        c_quant = (cp.lmat_q1[:rows_c].astype(np.float32) * sc1
-                   + cp.lmat_q2[:rows_c].astype(np.float32) * sc2)
-    c_table = c_quant.reshape(3, m, m, m).transpose(1, 3, 2, 0)
-    _, idx8c = _sim_coarse_geom(prep, probes)
-    coarse_passes = _sim_coarse_taps(prep, interp, probes)
-    got = _sim_passes(_gather8(c_table, idx8c), coarse_passes)
-    # every coarse tier stores the detrended table; the kernel adds the
-    # identity term from the exact remapped weights
-    got = got + _sim_coarse_ident(prep, interp, probes)
-
-    # term 2: residual at fine resolution, single-plane int8 with exact
-    # post-dot weights (hoisted-dot structure): only the table quantization
-    # of the tiny residual remains (plus any _tri interp substitution via
-    # the resid taps)
-    got = got + _sim_resid_term(prep, resid_interp, probes)
-
-    return float(max_delta_e76(
-        np.clip(ref, 0, 1).astype(np.float32),
-        np.clip(got, 0, 1).astype(np.float32),
-    ))

@@ -1,10 +1,10 @@
-"""Fused per-frame render op: planar YUV in -> planar YUV out on TPU.
+"""Fused per-frame render op: planar YUV in -> planar YUV out on the device.
 
 Assembles the full pixel pipeline the reference expresses as an FFmpeg filter
 chain (scale range/matrix -> format -> lut3d -> [dither] -> format, assembled
 at src/lut_renderer/ffmpeg.py:195-247,304-310 and executed inside the FFmpeg
 process): here it is one jit-compiled function — XLA fuses the elementwise
-stages, and the LUT core runs the Pallas MXU kernel (ops.lut3d).
+stages around the LUT core's gathers (ops.lut3d).
 
 The whole function is vmappable over a leading frame-batch axis and shardable
 over a device mesh (parallel.sharding wires that up).
@@ -28,7 +28,7 @@ from .pixel import (
     quantize_plane,
     range_normalize,
     yuv_planes_to_rgb,
-    rgb_to_yuv_planes_tpu,
+    rgb_to_yuv_planes,
 )
 from .prepare import PreparedLut
 from .resample import resample_plane, resample_weights
@@ -57,35 +57,20 @@ class RenderConfig:
     dither: str = "none"          # "none" | "ordered"
     chroma_up: str = "nearest"    # "nearest" | "bilinear"
     apply_lut: bool = True
-    # LUT kernel strategy: "mxu" (Pallas, production) or "gather" (XLA
-    # gather — slow on TPU but exact and CPU-friendly for tests).
-    lut_strategy: str = "mxu"
-    # Kernel numeric tier: "auto" resolves per LUT to the fastest of
-    # int8/fast/exact whose simulated dE76 clears the budget
-    # (ops.prepare.resolve_precision); "exact" opts out of the reduction.
-    lut_precision: str = "auto"
     # Requantize after range normalization to mimic the reference's 8-bit
     # intermediate `format=yuv420p` step (ffmpeg.py:233); parity knob.
     requantize_intermediate: bool = True
     # Output resolution (w, h) when the policy carries `-s WxH`
     # (ffmpeg.py:312-313); None keeps source size. swscale-matched bicubic
     # (SWS_BICUBIC B=0 C=0.6 — FFmpeg's `-s` default scaler) on the RGB
-    # planes after the LUT, applied as MXU matmuls (ops.resample).
+    # planes after the LUT, applied as matmuls (ops.resample).
     resize: Optional[Tuple[int, int]] = None
-    # Pixel-pipeline layout. "auto" picks the fastest applicable:
-    #   1. "fused"    — the fully-fused YUV->YUV Pallas kernel (pre/post glue
-    #      in-kernel; 4K fused frame 19.9 -> 16.5 ms, 8K 81.3 -> 66.6 on
-    #      v5e — ops.fused420); covers every nearest-sited {420,422,444}
-    #      in/out geometry incl. the 422p10le mastering stages and padded
-    #      DCI widths. Bit-exact vs "plain" under interpret; on the
-    #      chip max |d| = 1 code value at ~1e-5 pixel rate (Mosaic float
-    #      lowering), far inside every tier's dE budget. Forcing "fused"
-    #      where it cannot apply raises (no silent fallback).
-    #   2. "rowphase" — the ROW-PHASE half-height XLA layout (bit-identical
-    #      to plain everywhere — FINDINGS "Phase-decomposed 420 pipeline").
-    #   3. "plain"    — the straight full-res XLA layout.
-    # Each name also forces that layout (for tests/measurement/bit-exact
-    # requirements).
+    # Pixel-pipeline layout. "auto" takes "rowphase" where it applies
+    # (420 -> 420 nearest, no resize) and "plain" elsewhere:
+    #   "rowphase" — the row-phase half-height layout, bit-identical to
+    #      plain (tests/test_render_rowphase.py);
+    #   "plain"    — the straight full-res layout.
+    # Each name also forces that layout (for tests and measurement).
     phase_layout: str = "auto"
 
 
@@ -105,32 +90,7 @@ def _downsample(u, v, subsampling: str):
     return u, v
 
 
-_PHASE_LAYOUTS = ("auto", "plain", "rowphase", "fused")
-
-
-def _fused420_applicable(y, u, cfg: RenderConfig, prep) -> bool:
-    """True when the frame takes the fully-fused YUV->YUV kernel
-    (ops.fused420): any nearest-sited {420,422,444} in/out geometry with an
-    MXU LUT actually in play (non-128-multiple widths are padded inside).
-
-    An EXPLICITLY forced "fused" layout that does not apply raises instead
-    of silently degrading, so tests and measurements can never time the
-    wrong path."""
-    if cfg.phase_layout not in _PHASE_LAYOUTS:
-        raise ValueError(f"unknown phase_layout {cfg.phase_layout!r}")
-    if cfg.phase_layout not in ("auto", "fused"):
-        return False
-    from .fused420 import fused420_applicable
-
-    ok = fused420_applicable(y, u, cfg, prep)
-    if not ok and cfg.phase_layout == "fused":
-        raise ValueError(
-            "phase_layout='fused' was forced but the fused YUV->YUV kernel "
-            "does not apply to this config (it needs an MXU-strategy LUT, "
-            "nearest chroma siting, no resize, a non-error-diffusion "
-            "dither, even dimensions, and matching chroma plane geometry); "
-            f"cfg={cfg}, y={tuple(y.shape)}, u={tuple(u.shape)}")
-    return ok
+_PHASE_LAYOUTS = ("auto", "plain", "rowphase")
 
 
 def _rowphase_applicable(y, u, cfg: RenderConfig) -> bool:
@@ -153,16 +113,14 @@ def _rowphase_applicable(y, u, cfg: RenderConfig) -> bool:
     )
 
 
-def _render_rowphase_420(y, u, v, prep, cfg, interpret, lut_operands):
+def _render_rowphase_420(y, u, v, prep, cfg, lut_table):
     """Row-phase twin of the plain pipeline for 420->420 nearest: y splits
-    into two half-height row phases (sublane-strided reads — cheap; the
-    lane-strided 4-phase variant measured 590 ms/plane at 8K and is dead,
-    FINDINGS "Phase-decomposed 420 pipeline"), both pair elementwise with a
-    single lane-dupped chroma plane (== exact nearest upsample), the 2x2 box
-    downsample becomes lane adds per phase + a phase add in the production
-    grouping, and only the final quantized y pays one row interleave
-    (stack(-2)+reshape — the cheapest measured route). Bit-identical to the
-    plain path per-pixel: same scalar ops on the same values, dither offsets
+    into two half-height row phases (row-strided reads), both pair
+    elementwise with a single column-doubled chroma plane (== exact nearest
+    upsample), the 2x2 box downsample becomes column adds per phase + a
+    phase add in the plain path's grouping, and only the final quantized y
+    pays one row interleave (stack(-2)+reshape). Bit-identical to the plain
+    path per-pixel: same scalar ops on the same values, dither offsets
     phase-mapped (quantize_plane row_stride/row_offset)."""
     yp = jnp.stack([y[..., 0::2, :], y[..., 1::2, :]], axis=-3)
     ud = jnp.repeat(u, 2, axis=-1)[..., None, :, :]
@@ -186,16 +144,13 @@ def _render_rowphase_420(y, u, v, prep, cfg, interpret, lut_operands):
         yf, uf, vf, cfg.matrix_in, cfg.in_depth, cfg.work_full_range
     )
     if cfg.apply_lut and prep is not None:
-        r, g, b = apply_lut_planes(
-            r, g, b, prep, cfg.interp, strategy=cfg.lut_strategy,
-            precision=cfg.lut_precision, interpret=interpret,
-            operands=lut_operands,
-        )
-    yo, uo, vo = rgb_to_yuv_planes_tpu(
+        r, g, b = apply_lut_planes(r, g, b, prep, cfg.interp,
+                                   table=lut_table)
+    yo, uo, vo = rgb_to_yuv_planes(
         r, g, b, cfg.matrix_out, cfg.out_depth, cfg.out_full_range
     )
 
-    # 2x2 box downsample == lane adds per phase, then the phase add — the
+    # 2x2 box downsample == column adds per phase, then the phase add — the
     # exact add grouping of chroma_downsample_420 on the full-res plane.
     def _down(c):
         a = c[..., :, 0::2] + c[..., :, 1::2]
@@ -221,23 +176,17 @@ def render_yuv_frame(
     y, u, v,
     prep: Optional[PreparedLut],
     cfg: RenderConfig,
-    interpret: bool = False,
-    lut_operands=None,
+    lut_table=None,
     resize_weights=None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """One frame through the fused pipeline. Inputs are integer code-value
     planes (uint8/uint16) at cfg.in_depth with cfg.in_subsampling chroma.
-    lut_operands: optional table-operand dict (lut3d.kernel_operands) so the
-    jitted program stays LUT-agnostic — see make_render_fn.
+    lut_table: optional device copy of prep.table passed as a jit argument
+    so the jitted program stays LUT-agnostic — see make_render_fn.
     resize_weights: optional (Wv, Wh) pair for cfg.resize passed as jit
     arguments (make_render_fn); when None they trace as constants."""
-    if _fused420_applicable(y, u, cfg, prep):
-        from .fused420 import render_fused420
-
-        return render_fused420(y, u, v, prep, cfg, interpret, lut_operands)
     if _rowphase_applicable(y, u, cfg):
-        return _render_rowphase_420(y, u, v, prep, cfg, interpret,
-                                    lut_operands)
+        return _render_rowphase_420(y, u, v, prep, cfg, lut_table)
     yf = y.astype(jnp.float32)
     uf = u.astype(jnp.float32)
     vf = v.astype(jnp.float32)
@@ -261,16 +210,13 @@ def render_yuv_frame(
         yf, uf, vf, cfg.matrix_in, cfg.in_depth, cfg.work_full_range
     )
 
-    # 4. 3D LUT on the MXU
+    # 4. 3D LUT
     if cfg.apply_lut and prep is not None:
-        r, g, b = apply_lut_planes(
-            r, g, b, prep, cfg.interp, strategy=cfg.lut_strategy,
-            precision=cfg.lut_precision, interpret=interpret,
-            operands=lut_operands,
-        )
+        r, g, b = apply_lut_planes(r, g, b, prep, cfg.interp,
+                                   table=lut_table)
 
     # 4b. optional resolution change (policy `-s`): swscale-matched bicubic
-    # as two MXU matmuls per plane (ops.resample; parity-tested against the
+    # as two matmuls per plane (ops.resample; parity-tested against the
     # bundled libswscale in tests/test_resample.py)
     if cfg.resize is not None:
         rw, rh = cfg.resize
@@ -281,7 +227,7 @@ def render_yuv_frame(
         b = resample_plane(b, wv, wh)
 
     # 5. RGB -> YUV at output depth/range/matrix
-    yo, uo, vo = rgb_to_yuv_planes_tpu(
+    yo, uo, vo = rgb_to_yuv_planes(
         r, g, b, cfg.matrix_out, cfg.out_depth, cfg.out_full_range
     )
 
@@ -301,50 +247,25 @@ def render_yuv_frame(
     return yq, uq, vq
 
 
-def lut_operands_for(prep: Optional[PreparedLut], cfg: RenderConfig):
-    """The LUT table operands for this (prep, cfg) as numpy arrays, or None
-    when no LUT applies. Passing these as jit arguments (device_put once)
-    keeps compiled programs LUT-AGNOSTIC: any .cube of the same size/tier
-    reuses the program, so a warmed persistent cache serves never-seen LUTs
-    with zero compiles (the serving story; engine.warmup)."""
-    if prep is None or not cfg.apply_lut:
-        return None
-    if cfg.lut_strategy == "gather":
-        return {"table": prep.table}
-    from .lut3d import kernel_operands
-
-    return kernel_operands(prep, cfg.interp, cfg.lut_precision)
-
-
 def prep_static_key(prep: Optional[PreparedLut], cfg: RenderConfig):
     """Everything about a PreparedLut that a traced render program depends
-    on BESIDES the table values (which ride as runtime operands): size,
-    padded geometry, the per-LUT resolved tier, and the domain mapping
-    (baked as scalars). Two LUTs agreeing on this key share one jitted
-    function and one compiled program."""
+    on BESIDES the table values (which ride as a runtime operand): the size
+    and the domain mapping (baked as scalars). Two LUTs agreeing on this key
+    share one jitted function and one compiled program."""
     if prep is None or not cfg.apply_lut:
         return None
-    tier = (prep.resolve_precision(cfg.interp, cfg.lut_precision)
-            if cfg.lut_strategy == "mxu" else "gather")
     return (
         prep.size,
-        prep.rows_pad,
-        tier,
-        prep.quad_widths,
-        prep.resid_quad_widths,
-        None if prep.coarse is None else (prep.coarse.size,
-                                          prep.coarse.rows_pad,
-                                          prep.coarse.quad_widths),
         tuple(float(v) for v in prep.domain_min),
         tuple(float(v) for v in prep.domain_max),
     )
 
 
-# jitted render fns keyed by (cfg, interpret, prep_static_key): a new LUT of
-# an already-seen size/tier reuses the jitted fn outright — no retrace, no
-# compile, only a device_put of its table operands (the serving fast path).
-# Bounded FIFO: each entry's closure pins one PreparedLut (tens of MB at
-# 65^3), so a long-lived daemon over many size/tier/cfg combos must not
+# jitted render fns keyed by (cfg, prep_static_key): a new LUT of an
+# already-seen size and domain reuses the jitted fn outright — no retrace, no
+# compile, only a device_put of its table (the serving fast path).
+# Bounded FIFO: each entry's closure pins one PreparedLut (25 MB at
+# 129^3), so a long-lived daemon over many size/cfg combos must not
 # grow without limit; evicted fns fall back to the persistent XLA cache.
 _RENDER_FN_CACHE: dict = {}
 _RENDER_FN_CACHE_MAX = 32
@@ -355,41 +276,44 @@ import threading as _threading
 _RENDER_FN_CACHE_LOCK = _threading.Lock()
 
 
-def make_render_fn(prep: Optional[PreparedLut], cfg: RenderConfig,
-                   batched: bool = True, interpret: bool = False):
+def lut_table_for(prep: Optional[PreparedLut], cfg: RenderConfig):
+    """The host table the render program takes as its LUT operand, or None
+    when no LUT applies."""
+    if prep is None or not cfg.apply_lut:
+        return None
+    return prep.table
+
+
+def make_render_fn(prep: Optional[PreparedLut], cfg: RenderConfig):
     """Build a jitted render function.
 
     The pipeline is batch-polymorphic by construction (all planar ops work on
-    trailing (H, W) axes and the LUT kernel flattens pixels), so batched
-    (B, H, W) / (B, Hc, Wc) inputs flow through the SAME code path as single
-    frames — no vmap-over-pallas_call needed (which also sidesteps a Mosaic
-    batching lowering failure observed on the chip).
+    trailing (H, W) axes and the LUT core works on any leading shape), so
+    batched (B, H, W) / (B, Hc, Wc) inputs flow through the SAME code path
+    as single frames.
 
-    The LUT table operands ride as a jit ARGUMENT (device_put once here),
-    not as baked constants, so the compiled program depends only on shapes,
-    LUT size, tier, interp, and domain — not the table values — and the
-    jitted function itself is cached across LUTs (prep_static_key)."""
-    del batched  # retained for API compatibility; shape-polymorphic anyway
-    ops_np = lut_operands_for(prep, cfg)
-    if ops_np is None and cfg.resize is None:
-        fn = functools.partial(render_yuv_frame, prep=prep, cfg=cfg,
-                               interpret=interpret)
+    The LUT table rides as a jit ARGUMENT (device_put once here), not as a
+    baked constant, so the compiled program depends only on shapes, LUT
+    size, interp, and domain — not the table values — and the jitted
+    function itself is cached across LUTs (prep_static_key)."""
+    table_np = lut_table_for(prep, cfg)
+    if table_np is None and cfg.resize is None:
+        fn = functools.partial(render_yuv_frame, prep=prep, cfg=cfg)
         return jax.jit(lambda y, u, v: fn(y, u, v))
-    key = (cfg, interpret, prep_static_key(prep, cfg))
+    key = (cfg, prep_static_key(prep, cfg))
     with _RENDER_FN_CACHE_LOCK:
         jitted = _RENDER_FN_CACHE.get(key)
         if jitted is None:
-            fn = functools.partial(render_yuv_frame, prep=prep, cfg=cfg,
-                                   interpret=interpret)
+            fn = functools.partial(render_yuv_frame, prep=prep, cfg=cfg)
             jitted = jax.jit(
-                lambda y, u, v, ops, rsw: fn(y, u, v, lut_operands=ops,
-                                             resize_weights=rsw))
+                lambda y, u, v, table, rsw: fn(y, u, v, lut_table=table,
+                                               resize_weights=rsw))
             while len(_RENDER_FN_CACHE) >= _RENDER_FN_CACHE_MAX:
                 _RENDER_FN_CACHE.pop(next(iter(_RENDER_FN_CACHE)))
             _RENDER_FN_CACHE[key] = jitted
-    ops_dev = None if ops_np is None else jax.device_put(ops_np)
+    table_dev = None if table_np is None else jax.device_put(table_np)
     if cfg.resize is None:
-        return lambda y, u, v: jitted(y, u, v, ops_dev, None)
+        return lambda y, u, v: jitted(y, u, v, table_dev, None)
 
     # Resize weight matrices depend on the INPUT luma shape (known only at
     # call time); ride as jit args — device_put once per shape — so resize
@@ -403,6 +327,6 @@ def make_render_fn(prep: Optional[PreparedLut], cfg: RenderConfig,
             rw, rh = cfg.resize
             rsw = jax.device_put(resample_weights(hw, (rh, rw)))
             rsw_cache[hw] = rsw
-        return jitted(y, u, v, ops_dev, rsw)
+        return jitted(y, u, v, table_dev, rsw)
 
     return call

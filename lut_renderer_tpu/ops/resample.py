@@ -1,16 +1,15 @@
-"""Resolution rescale (`-s WxH`) as a TPU-native matmul resampler.
+"""Resolution rescale (`-s WxH`) as a matmul resampler on the device.
 
 The reference forwards `params.resolution` straight to FFmpeg as `-s WxH`
 (src/lut_renderer/ffmpeg.py:312-313), which swscale executes with its default
 scaler: SWS_BICUBIC, the Keys bicubic with (B, C) = (0, 0.6). This module
 reproduces that scaler exactly as dense separable weight matrices applied as
-two matmuls per plane — the idiomatic TPU formulation (resampling rides the
-MXU; a 4K->1080p plane costs ~17e9 MACs ~= sub-ms) instead of swscale's
-per-row SIMD convolution loops.
+two matmuls per plane (a 4K->1080p plane costs ~17e9 MACs) instead of
+swscale's per-row SIMD convolution loops.
 
 The weight model below was verified tap-for-tap against the bundled
-libswscale via impulse-response extraction (experiments/r4_scale_probe.py,
-hostio.oracle.ScaleOracle): FFmpeg computes filter positions in 16.16 fixed
+libswscale via impulse-response extraction (hostio.oracle.ScaleOracle,
+tests/test_resample.py): FFmpeg computes filter positions in 16.16 fixed
 point with C truncation-toward-zero, widens + rescales the kernel argument by
 dst/src when downscaling (anti-aliasing), folds out-of-range border taps into
 the nearest valid tap (== replicate padding), and normalizes each row to 1
@@ -24,6 +23,7 @@ import functools
 
 import numpy as np
 import jax.numpy as jnp
+from jax import lax
 
 # swscale's default bicubic spline parameters (libswscale SWS_BICUBIC with
 # SWS_PARAM_DEFAULT): Keys (B, C) = (0, 0.6).
@@ -100,9 +100,13 @@ def resample_weights(in_hw, out_hw):
 
 def resample_plane(x, wv, wh):
     """Apply the separable resample to trailing (H, W) axes of `x` (any
-    leading batch dims) via two f32 matmuls: Wv @ x @ Wh^T."""
+    leading batch dims) via two f32 matmuls: Wv @ x @ Wh^T. HIGHEST
+    precision keeps full f32 products: a GPU would otherwise be free to run
+    f32 matmuls in TF32, whose 10-bit mantissa moves 10-bit code values."""
     xf = x.astype(jnp.float32)
     t = jnp.einsum("ah,...hw->...aw", wv, xf,
+                   precision=lax.Precision.HIGHEST,
                    preferred_element_type=jnp.float32)
     return jnp.einsum("...aw,bw->...ab", t, wh,
+                      precision=lax.Precision.HIGHEST,
                       preferred_element_type=jnp.float32)

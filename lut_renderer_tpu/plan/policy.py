@@ -3,7 +3,7 @@
 This is the semantic equivalent of the reference's `build_command`
 (src/lut_renderer/ffmpeg.py:179-414), which compiles user params + probe data
 into an FFmpeg argv. Here the output is a *structured plan* consumed by the
-TPU engine instead of an argv string, but every policy decision is carried
+device engine instead of an argv string, but every policy decision is carried
 over one-to-one:
 
   * streamcopy + filters is a hard error            (ffmpeg.py:255-256)
@@ -41,7 +41,7 @@ from ..models import ProcessingParams, VideoInfo
 _BITRATE_RE = re.compile(r"^\s*(\d+(?:\.\d+)?)([kKmMgG]?)\s*$")
 
 VALID_INTERP = {"nearest", "trilinear", "tetrahedral", "pyramid", "prism", "cubic"}
-# Interp modes natively implemented by the TPU kernel (all of FFmpeg lut3d's
+# Interp modes natively implemented by the device LUT core (all of FFmpeg lut3d's
 # working set). "cubic" is an accepted NAME upstream that FFmpeg's own lut3d
 # rejects at runtime; here it degrades to tetrahedral with a note.
 KERNEL_INTERP = {"nearest", "trilinear", "tetrahedral", "pyramid", "prism"}
@@ -414,23 +414,23 @@ def build_render_spec(
             requested_dither = params.zscale_dither or "none"
             if requested_dither == "error_diffusion":
                 # Execution picks exact host error diffusion (native C++)
-                # when available, else the TPU's spatially-stationary ordered
+                # when available, else the device's spatially-stationary ordered
                 # dither (see colorcore.dither for rationale).
                 spec.filters.append(
                     FilterStep("dither", {"mode": "error_diffusion"})
                 )
                 notes.append(
                     "Dither: error_diffusion (exact host pass when the native "
-                    "library is present, TPU ordered dither otherwise)"
+                    "library is present, device ordered dither otherwise)"
                 )
             elif requested_dither in ("ordered", "random"):
-                # TPU-native dithers beyond the reference's zscale set:
+                # Device dithers beyond the reference's zscale set:
                 # ordered (Bayer) and random (position-hash stochastic
                 # rounding), both zero-mean and in-pipeline.
                 spec.filters.append(
                     FilterStep("dither", {"mode": requested_dither})
                 )
-                notes.append(f"Dither: {requested_dither} (TPU in-pipeline)")
+                notes.append(f"Dither: {requested_dither} (device in-pipeline)")
             if lut_path:
                 spec.filters.append(FilterStep("format", {"pix_fmt": pix_fmt}))
             spec.pix_fmt = pix_fmt

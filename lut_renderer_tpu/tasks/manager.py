@@ -27,8 +27,7 @@ from .signals import Signal
 
 
 class TaskManager:
-    def __init__(self, max_concurrency: int = 1, lut_strategy: str = "mxu",
-                 profile_dir=None):
+    def __init__(self, max_concurrency: int = 1, profile_dir=None):
         self.task_added = Signal("task_added")        # (task_id)
         self.task_updated = Signal("task_updated")    # (task_id)
         self.task_progress = Signal("task_progress")  # (task_id, int)
@@ -41,7 +40,6 @@ class TaskManager:
         self._pending: deque = deque()
         self._lock = threading.RLock()
         self._max = max(1, max_concurrency)
-        self._lut_strategy = lut_strategy
         self._profile_dir = profile_dir
 
     # -- queue management ---------------------------------------------------
@@ -81,8 +79,7 @@ class TaskManager:
                 task = self.tasks.get(task_id)
                 if task is None or task.status != TaskStatus.PENDING:
                     continue
-                runner = TaskRunner(task, lut_strategy=self._lut_strategy,
-                                    profile_dir=self._profile_dir)
+                runner = TaskRunner(task, profile_dir=self._profile_dir)
                 runner.progress.connect(self._on_progress)
                 runner.status.connect(self._on_status)
                 runner.finished.connect(self._on_finished)

@@ -33,9 +33,9 @@ from .signals import Signal
 
 _LUT_CACHE: Dict[Tuple[str, int], PreparedLut] = {}
 _LUT_CACHE_LOCK = threading.Lock()
-# A prepared 33^3 LUT (all tiers + sims) is a few MB; a warm daemon
-# switching between a handful of looks shouldn't re-prepare (and re-run the
-# precision simulations) on every task.
+# A prepared LUT is its float32 table (0.4 MB at 33^3, 25 MB at 129^3); a
+# warm daemon switching between a handful of looks shouldn't re-parse the
+# .cube file on every task.
 _LUT_CACHE_MAX = 4
 
 
@@ -72,10 +72,8 @@ def extract_cover(source: Path, dest: Path) -> None:
 
 
 class TaskRunner:
-    def __init__(self, task: Task, lut_strategy: str = "mxu",
-                 profile_dir=None):
+    def __init__(self, task: Task, profile_dir=None):
         self.task = task
-        self.lut_strategy = lut_strategy
         self.profile_dir = profile_dir
         self.progress = Signal("progress")     # (task_id, int)
         self.status = Signal("status")         # (task_id, str)
@@ -157,7 +155,6 @@ class TaskRunner:
                     progress_cb=stage_progress,
                     log_cb=lambda m: self._log(m),
                     cancel=self._cancel,
-                    lut_strategy=self.lut_strategy,
                     profile_dir=self.profile_dir,
                 )
                 # per-stage throughput counters (SURVEY §5.1) reach the task

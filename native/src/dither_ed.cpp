@@ -2,7 +2,7 @@
 //
 // The reference's `zscale=dither=error_diffusion` (src/lut_renderer/
 // ffmpeg.py:304-307) is inherently serial: each pixel's quantization error
-// feeds its right/lower neighbors, so the TPU kernel substitutes a
+// feeds its right/lower neighbors, so the device pipeline substitutes a
 // spatially-stationary ordered dither (plan.policy note). This native
 // implementation provides the real row-recurrent algorithm as (a) the
 // quality oracle ordered dither is compared against, and (b) an opt-in

@@ -2,7 +2,7 @@
 set -euo pipefail
 
 # Build a distributable wheel + sdist for the headless CLI (`lut-tpu`).
-# The TPU rebuild's analog of the reference's PyInstaller app bundling
+# The rebuild's analog of the reference's PyInstaller app bundling
 # (reference: scripts/build_dir_app.sh, scripts/build_onefile_app.sh) —
 # a GUI-less deployment ships as a wheel; the native C++ helpers
 # (cube parse, Floyd-Steinberg dither) compile on first use via

@@ -348,22 +348,36 @@ def test_help_covers_every_processing_param_field():
         assert "unknown topic" not in help_text(extra), extra
 
 
-def test_persistent_compile_cache_config(tmp_path, monkeypatch):
-    """Cache dir resolution: env var wins (empty disables), settings next,
-    platform cache dir default; enabling is idempotent and points JAX at
-    the directory."""
-    import lut_renderer_tpu.utils.compile_cache as cc
-
-    monkeypatch.setenv("LUT_TPU_JAX_CACHE", str(tmp_path / "jc"))
-    cc._enabled = False
-    out = cc.enable_persistent_compile_cache()
-    assert out == tmp_path / "jc" and out.is_dir()
+@pytest.mark.parametrize("env_set", [True, False],
+                         ids=["JAX_COMPILATION_CACHE_DIR", "in_checkout"])
+def test_persistent_compile_cache_config(tmp_path, monkeypatch, env_set):
+    """With JAX_COMPILATION_CACHE_DIR set, JAX reads it itself and the code
+    sets no directory; without it, the cache goes to one fixed path inside
+    the checkout (listed in .gitignore). Enabling is idempotent."""
     import jax
 
-    assert jax.config.jax_compilation_cache_dir == str(tmp_path / "jc")
+    import lut_renderer_tpu.utils.compile_cache as cc
+
+    repo = Path(__file__).resolve().parent.parent
+    assert cc.DEFAULT_DIR == repo / ".jax_cache"
+    assert ".jax_cache/" in (repo / ".gitignore").read_text().split()
+    updates = {}
+    monkeypatch.setattr(cc, "_enabled", False)
+    monkeypatch.setattr(jax.config, "update",
+                        lambda k, v: updates.__setitem__(k, v))
+    if env_set:
+        monkeypatch.setenv(cc.ENV_VAR, str(tmp_path / "jc"))
+        out = cc.enable_persistent_compile_cache()
+        assert out == tmp_path / "jc"
+        assert "jax_compilation_cache_dir" not in updates
+    else:
+        monkeypatch.delenv(cc.ENV_VAR, raising=False)
+        monkeypatch.setattr(cc, "DEFAULT_DIR", tmp_path / "repo_cache")
+        out = cc.enable_persistent_compile_cache()
+        assert out == tmp_path / "repo_cache" and out.is_dir()
+        assert updates["jax_compilation_cache_dir"] == str(out)
+    assert cc.cache_dir() == out
     assert cc.enable_persistent_compile_cache() == out  # idempotent
-    monkeypatch.setenv("LUT_TPU_JAX_CACHE", "")
-    assert cc.cache_dir() is None
 
 
 def test_cli_luts_filter(tmp_path, capsys):
@@ -410,33 +424,6 @@ def test_config_dir_env_override(tmp_path, monkeypatch):
     settings_mod.save_settings({"k": 1})
     assert (tmp_path / "cfg" / "settings.json").exists()
     assert settings_mod.load_settings() == {"k": 1}
-
-
-def test_cli_luts_gate(tmp_path, monkeypatch, capsys):
-    """`luts gate <cube>` pre-runs the per-LUT precision gate and persists
-    the result by content hash (the tier-gate analog of serve --warmup)."""
-    import numpy as np
-
-    from lut_renderer_tpu.colorcore import Lut3D, write_cube_file
-
-    gate_dir = tmp_path / "tiergate"
-    monkeypatch.setenv("LUT_TPU_TIERGATE_CACHE", str(gate_dir))
-    rng = np.random.default_rng(3)
-    lut = Lut3D.identity(17)
-    lut.table = np.clip(
-        lut.table + rng.uniform(-0.04, 0.04, lut.table.shape
-                                ).astype(np.float32), 0, 1)
-    cube = tmp_path / "look.cube"
-    write_cube_file(cube, lut)
-
-    assert cli_main(["luts", "gate", str(cube)]) == 0
-    out = capsys.readouterr().out
-    assert "look.cube" in out and "tetrahedral=" in out
-    files = list(gate_dir.glob("*.json"))
-    assert len(files) == 1 and files[0].read_text().strip().startswith("{")
-
-    # a bad path reports failure without crashing the batch
-    assert cli_main(["luts", "gate", str(tmp_path / "missing.cube")]) == 1
 
 
 def test_icon_pngs(tmp_path, capsys):

@@ -58,8 +58,7 @@ def test_config1_fast_delivery_trilinear_33(tmp_path, lut33):
     assert spec.lut_interp == "trilinear"
     from lut_renderer_tpu.tasks.runner import load_prepared_lut
 
-    res = run_stage(spec, info, load_prepared_lut(Path(lut33)),
-                    lut_strategy="gather")
+    res = run_stage(spec, info, load_prepared_lut(Path(lut33)))
     assert res.ok, res.error
     oinfo = probe_video(out)
     assert oinfo.pix_fmt == "yuv420p"
@@ -82,8 +81,7 @@ def test_config2_65cube_tetra_10bit_to_8bit_dither(tmp_path, lut65):
     assert spec.pix_fmt == "yuv420p"
     from lut_renderer_tpu.tasks.runner import load_prepared_lut
 
-    res = run_stage(spec, info, load_prepared_lut(Path(lut65)),
-                    lut_strategy="gather")
+    res = run_stage(spec, info, load_prepared_lut(Path(lut65)))
     assert res.ok, res.error
     oinfo = probe_video(out)
     assert oinfo.bit_depth == 8
@@ -112,7 +110,7 @@ def test_config3_pro_two_stage_10bit_mastering(tmp_path, lut33):
         source_info=info,
         intermediate_path=master_dir / "c3_master.mov",
     )
-    runner = TaskRunner(task, lut_strategy="gather")
+    runner = TaskRunner(task)
     statuses, logs = [], []
     runner.finished.connect(lambda tid, s: statuses.append(s))
     runner.log.connect(lambda tid, m: logs.append(m))
@@ -135,7 +133,7 @@ def test_config4_mixed_queue_yuvj_vfr_inherit(tmp_path, lut33):
     info_vfr = probe_video(vfr)
     assert info_vfr.is_vfr
 
-    mgr = TaskManager(max_concurrency=2, lut_strategy="gather")
+    mgr = TaskManager(max_concurrency=2)
     t1 = Task("c4a", Path(full), tmp_path / "c4a_out.mp4", Path(lut33), None,
               ProcessingParams(video_codec="mpeg4",
                                lut_output_tags="inherit"),
@@ -167,7 +165,7 @@ def test_config5_frame_sharded_multichip(rng, lut33):
 
     prep = prepare_lut(parse_cube_file(lut33))
     mesh = default_mesh()
-    cfg = RenderConfig(interp="tetrahedral", lut_strategy="gather")
+    cfg = RenderConfig(interp="tetrahedral")
     # 8K aspect at 1/20 scale, one frame per device
     h, w = 216, 384
     y = rng.integers(16, 236, (8, h, w), dtype=np.uint8)

@@ -1,5 +1,5 @@
 """END-TO-END parity: the reference's complete FFmpeg filter chain vs the
-fused TPU render, yuv420p in -> yuv420p out.
+fused device render, yuv420p in -> yuv420p out.
 
 The kernel-level oracle (tests/test_oracle_parity.py) isolates lut3d on RGB
 planes; this suite instead runs the chain the reference actually emits
@@ -64,7 +64,7 @@ def _ours(y, u, v, prep, cfg):
     import jax.numpy as jnp
 
     oy, ou, ov = render_yuv_frame(jnp.asarray(y), jnp.asarray(u),
-                                  jnp.asarray(v), prep, cfg, interpret=True)
+                                  jnp.asarray(v), prep, cfg)
     return np.asarray(oy), np.asarray(ou), np.asarray(ov)
 
 
@@ -90,8 +90,7 @@ def test_full_chain_bt709_tagged(lut_path, interp):
     ]
     with ChainOracle(W, H, filters) as orc:
         ffm = orc.apply_yuv(y, u, v)
-    cfg = RenderConfig(interp=interp, lut_strategy="gather",
-                       lut_precision="exact", phase_layout="plain")
+    cfg = RenderConfig(interp=interp, phase_layout="plain")
     _assert_close(ffm, _ours(y, u, v, prep, cfg), max_y=3, max_c=2, mean_y=1.8)
 
 
@@ -106,14 +105,12 @@ def test_full_chain_untagged_uses_bt601(lut_path):
     ]
     with ChainOracle(W, H, filters) as orc:
         ffm = orc.apply_yuv(y, u, v)
-    cfg601 = RenderConfig(interp="tetrahedral", lut_strategy="gather",
-                          lut_precision="exact", matrix_in="bt601",
+    cfg601 = RenderConfig(interp="tetrahedral", matrix_in="bt601",
                           matrix_out="bt601", phase_layout="plain")
     _assert_close(ffm, _ours(y, u, v, prep, cfg601),
                   max_y=3, max_c=2, mean_y=1.8)
     # and bt709 does NOT match — the tag test above isn't vacuous
-    cfg709 = RenderConfig(interp="tetrahedral", lut_strategy="gather",
-                          lut_precision="exact", phase_layout="plain")
+    cfg709 = RenderConfig(interp="tetrahedral", phase_layout="plain")
     oy = _ours(y, u, v, prep, cfg709)[0]
     assert np.abs(ffm[0].astype(np.int32) - oy.astype(np.int32)).max() > 5
 
@@ -132,8 +129,7 @@ def test_residual_is_ffmpeg_8bit_intermediate(lut_path):
     ]
     with ChainOracle(W, H, filters) as orc:
         ffm = orc.apply_yuv(y, u, v)
-    cfg = RenderConfig(interp="tetrahedral", lut_strategy="gather",
-                       lut_precision="exact", phase_layout="plain")
+    cfg = RenderConfig(interp="tetrahedral", phase_layout="plain")
     ours = _ours(y, u, v, prep, cfg)
     dy = np.abs(ffm[0].astype(np.int32) - ours[0].astype(np.int32))
     assert dy.max() <= 2
@@ -155,8 +151,7 @@ def test_full_chain_fullrange_normalization(lut_path):
     ]
     with ChainOracle(W, H, filters) as orc:
         ffm = orc.apply_yuv(y, u, v)
-    cfg = RenderConfig(interp="tetrahedral", lut_strategy="gather",
-                       lut_precision="exact", phase_layout="plain",
+    cfg = RenderConfig(interp="tetrahedral", phase_layout="plain",
                        in_full_range=True, work_full_range=False,
                        requantize_intermediate=True)
     _assert_close(ffm, _ours(y, u, v, prep, cfg), max_y=3, max_c=2, mean_y=1.8)
@@ -182,8 +177,7 @@ def test_full_chain_10bit(lut_path):
     ]
     with ChainOracle(W, H, filters, pix_fmt="yuv420p10le") as orc:
         ffm = orc.apply_yuv(y, u, v)
-    cfg = RenderConfig(interp="tetrahedral", lut_strategy="gather",
-                       lut_precision="exact", phase_layout="plain",
+    cfg = RenderConfig(interp="tetrahedral", phase_layout="plain",
                        in_depth=10, out_depth=10)
     ours = _ours(y, u, v, prep, cfg)
     # 10-bit units: FFmpeg's >=10-bit RGB intermediate keeps |d| small

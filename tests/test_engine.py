@@ -1,8 +1,5 @@
-"""Engine tests: config derivation, frame scheduler, end-to-end stage runs.
-
-Stage runs use the XLA-gather LUT strategy on the CPU backend (the Pallas MXU
-path is covered by test_lut3d_op in interpret mode and by bench.py on the real
-chip) so these stay fast.
+"""Engine tests: config derivation, frame scheduler, end-to-end stage runs
+on the CPU backend.
 """
 
 import threading
@@ -178,7 +175,7 @@ def test_stage_end_to_end(small_clip, warm_lut, tmp_path):
     )
     progs, logs = [], []
     res = run_stage(spec, info, prep, progress_cb=progs.append,
-                    log_cb=logs.append, lut_strategy="gather")
+                    log_cb=logs.append)
     assert res.ok, res.error
     assert progs[-1] == 100
     assert res.stats.frames_out == 10
@@ -221,7 +218,7 @@ def test_stage_cancel(small_clip, warm_lut, tmp_path):
     )
     ev = threading.Event()
     ev.set()  # cancel before the first batch
-    res = run_stage(spec, info, prep, cancel=ev, lut_strategy="gather")
+    res = run_stage(spec, info, prep, cancel=ev)
     assert not res.ok and res.canceled
 
 
@@ -328,7 +325,7 @@ def test_crf_drives_encoded_size_vp9(tmp_path):
         out = tmp_path / f"crf{crf}.webm"
         spec = RenderSpec(source=clip, output=out, video_codec="libvpx-vp9",
                           crf=crf)
-        res = run_stage(spec, info, None, lut_strategy="gather")
+        res = run_stage(spec, info, None)
         assert res.ok, res.error
         sizes[crf] = out.stat().st_size
     assert sizes["10"] > sizes["55"]
@@ -356,7 +353,7 @@ def test_crf_drives_encoded_size(tmp_path):
         out = tmp_path / f"crf{crf}.mp4"
         spec = RenderSpec(source=clip, output=out, video_codec="mpeg4",
                           crf=crf)
-        res = run_stage(spec, info, None, lut_strategy="gather")
+        res = run_stage(spec, info, None)
         assert res.ok, res.error
         sizes[crf] = out.stat().st_size
     assert sizes["18"] > sizes["38"]
@@ -372,7 +369,7 @@ def test_run_stage_corrupt_source_fails_cleanly(tmp_path):
     bad.write_bytes(b"not a movie" * 1024)
     out = tmp_path / "out.mp4"
     spec = RenderSpec(source=bad, output=out, video_codec="mpeg4")
-    res = run_stage(spec, None, None, lut_strategy="gather")
+    res = run_stage(spec, None, None)
     assert not res.ok
     assert "decode" in res.error.lower() or "open" in res.error.lower()
 
@@ -386,7 +383,7 @@ def test_run_stage_unwritable_output_fails_cleanly(tmp_path):
     info = probe_video(clip)
     spec = RenderSpec(source=clip, output=Path("/nonexistent-dir/x.mp4"),
                       video_codec="mpeg4")
-    res = run_stage(spec, info, None, lut_strategy="gather")
+    res = run_stage(spec, info, None)
     assert not res.ok and res.error
 
 
@@ -400,36 +397,69 @@ def test_run_stage_profiler_trace(tmp_path):
                              ProcessingParams(video_codec="prores_ks"),
                              None, info)
     tdir = tmp_path / "trace"
-    res = run_stage(spec, info, None, lut_strategy="gather",
+    res = run_stage(spec, info, None,
                     profile_dir=str(tdir))
     assert res.ok, res.error
     assert any(tdir.rglob("*"))  # trace artifacts written
 
 
-def test_run_stage_cpu_falls_back_from_mxu(tmp_path):
-    """On a CPU-only host the default mxu strategy must auto-fall back to
-    the gather path instead of dying in Pallas (the doctor's promise)."""
-    from lut_renderer_tpu.colorcore import Lut3D, write_cube_file, parse_cube_file
-    from lut_renderer_tpu.utils.fixtures import make_gradient_clip
+def test_run_stage_injected_decoder_and_encoder(tmp_path):
+    """run_stage takes an already-open frame source and an encoder factory
+    (what chip_smoke.py drives without media files): every frame reaches
+    the sink, rendered exactly as the jitted step renders it, across a
+    partial last batch."""
+    from lut_renderer_tpu.ops.render import make_render_fn
 
-    clip = make_gradient_clip(tmp_path / "c.mp4", 64, 64, fps=25.0, frames=4)
-    info = probe_video(clip)
-    cube = write_cube_file(tmp_path / "l.cube", Lut3D.identity(5))
-    prep = prepare_lut(parse_cube_file(cube))
-    spec = build_render_spec(Path(clip), tmp_path / "o.mov",
-                             ProcessingParams(video_codec="prores_ks"),
-                             Path(cube), info)
-    logs = []
-    res = run_stage(spec, info, prep, log_cb=logs.append,
-                    lut_strategy="mxu")  # the production default
+    info = VideoInfo(width=64, height=32, fps=25.0, pix_fmt="yuv422p10le",
+                     bit_depth=10)
+    spec = build_render_spec(SRC, OUT, ProcessingParams(video_codec="prores_ks"),
+                             LUT, info)
+    prep = prepare_lut(Lut3D.identity(9))
+    rng = np.random.default_rng(4)
+    y = rng.integers(64, 941, (5, 32, 64)).astype(np.uint16)
+    u = rng.integers(64, 961, (5, 32, 32)).astype(np.uint16)
+    v = rng.integers(64, 961, (5, 32, 32)).astype(np.uint16)
+
+    class Source:
+        width, height = 64, 32
+        closed = False
+
+        def __iter__(self):
+            for i in range(5):
+                yield DecodedFrame(i, None, None, y[i], u[i], v[i],
+                                   "yuv422p10le", 10, False)
+
+        def close(self):
+            self.closed = True
+
+    opened, frames = [], []
+
+    class Sink:
+        def __init__(self, output, settings, **audio):
+            opened.append((output, settings.pix_fmt))
+
+        def write(self, *planes):
+            frames.append(tuple(np.array(p) for p in planes))
+
+        def close(self):
+            pass
+
+    src = Source()
+    res = run_stage(spec, info, prep, batch_size=2, use_mesh=False,
+                    decoder=src, encoder_factory=Sink)
     assert res.ok, res.error
-    assert any("gather fallback" in m for m in logs)
+    assert opened == [(OUT, "yuv422p10le")] and src.closed
+    assert len(frames) == 5 and res.stats.batches == 3
+    want = make_render_fn(prep, derive_render_config(spec, info))(y, u, v)
+    for i, got in enumerate(frames):
+        for a, e in zip(got, want):
+            np.testing.assert_array_equal(a, np.asarray(e)[i])
 
 
 def test_warmup_programs_cpu():
     """engine.warmup drives the exact executor entry points (make_render_fn
-    + operand args) over the production program set; on CPU (gather path)
-    a tiny program must run and report ok with the resolved tier."""
+    with the table as an argument) over the production program set; a tiny
+    program must run and report ok."""
     from lut_renderer_tpu.engine.warmup import WarmupProgram, warmup_programs
 
     logs = []
@@ -443,7 +473,8 @@ def test_warmup_programs_cpu():
         batch_size=2,
     )
     assert all(r["ok"] for r in recs), recs
-    assert recs[0]["tier"] in ("fast", "int8_lite", "int8_fast", "exact")
+    assert [r["label"] for r in recs] == ["tiny 33", "tiny 65 10-bit 422"]
+    assert all(r["batch"] == 2 for r in recs)
     assert len(logs) == 2 and all("warmup:" in l for l in logs)
 
 
@@ -451,15 +482,15 @@ def test_warmup_ladder_covers_geometry_buckets():
     """Drift pin: every serving bucket (engine.geometry.BUCKETS) except
     the documented 8K compile-on-first-use rung must have a warmup
     program at its exact geometry — otherwise pick_bucket routes ad hoc
-    jobs onto shapes `serve --warmup` never compiled and the 620s cold
-    compile quietly returns."""
+    jobs onto shapes `serve --warmup` never compiled and a cold compile
+    quietly returns."""
     from lut_renderer_tpu.engine.geometry import BUCKETS
     from lut_renderer_tpu.engine.warmup import DEFAULT_PROGRAMS
 
     warmed = {(p.width, p.height) for p in DEFAULT_PROGRAMS}
     missing = [b for b in BUCKETS if b != (7680, 4320) and b not in warmed]
     assert not missing, f"buckets without warmup programs: {missing}"
-    # and the bucket programs warm the auto ladder head + the bf16 rung
+    # the ad hoc serving class: 8-bit 4:2:0 at 33^3
     for p in DEFAULT_PROGRAMS:
         if p.label.startswith("bucket ") and "10-bit" not in p.label:
-            assert p.tiers == ("auto", "fast"), p
+            assert (p.in_depth, p.in_subsampling, p.lut_size) == (8, "420", 33)

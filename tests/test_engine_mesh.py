@@ -1,5 +1,5 @@
 """Engine auto-sharding over the virtual 8-device mesh (config 5 end-to-end:
-decode -> sharded TPU-path render -> encode through the full executor)."""
+decode -> sharded device render -> encode through the full executor)."""
 
 from pathlib import Path
 
@@ -32,7 +32,7 @@ def test_stage_sharded_vs_single_device(clip, tmp_path):
         )
         logs = []
         res = run_stage(spec, info, None, log_cb=logs.append,
-                        use_mesh=use_mesh, lut_strategy="gather")
+                        use_mesh=use_mesh)
         assert res.ok, res.error
         if use_mesh:
             assert any("sharded over 8 devices" in m for m in logs)

@@ -5,12 +5,12 @@ The reference serves ANY geometry with zero warmup (its FFmpeg filter
 chain is an interpreter, reference ffmpeg.py:189-193, 242-247); shape-keyed
 XLA programs must not turn that into minutes of compile. These tests pin:
 
-* the bucket-selection policy (round up, production shapes exempt,
-  LUT_TPU_GEOMETRY=exact escape hatch);
+* the bucket-selection policy (opt-in with LUT_TPU_GEOMETRY=bucket, round
+  up, production shapes exempt; "auto" runs exact shapes);
 * BIT-exactness of pad->render->crop vs the direct render for every
   pipeline stage class that touches geometry (chroma up/downsampling in
-  all sitings, position-anchored dithers, range requantize, the fused
-  Pallas layout, float error-diffusion outputs);
+  all sitings, position-anchored dithers, range requantize, the row-phase
+  layout, float error-diffusion outputs);
 * the executor end-to-end: a bucketed run produces byte-identical output
   to an exact-shape run through a lossless encoder.
 """
@@ -52,35 +52,38 @@ def test_pick_bucket_policy(bucket_mode):
 def test_mode_policy(monkeypatch):
     monkeypatch.setenv("LUT_TPU_GEOMETRY", "exact")
     assert pick_bucket(640, 360) is None
-    # default/unknown = auto: bucket on TPU, exact elsewhere (XLA CPU
-    # compiles in seconds — padding would cost real render work for no
-    # compile-avoidance; the code-review catch of round 5)
+    # default/unknown = auto = exact shapes on every platform: bucketing is
+    # the explicit mode until a measurement on the device says it pays
     monkeypatch.setenv("LUT_TPU_GEOMETRY", "nonsense")
-    assert pick_bucket(640, 360, on_tpu=True) == (640, 368)
-    assert pick_bucket(640, 360, on_tpu=False) is None
+    assert geometry.geometry_mode() == "auto"
+    assert pick_bucket(640, 360) is None
     monkeypatch.delenv("LUT_TPU_GEOMETRY")
-    assert pick_bucket(640, 360, on_tpu=False) is None
-    # forced bucket applies everywhere (how these tests exercise it on CPU)
+    assert geometry.geometry_mode() == "auto"
+    assert pick_bucket(640, 360) is None
     monkeypatch.setenv("LUT_TPU_GEOMETRY", "bucket")
-    assert pick_bucket(640, 360, on_tpu=False) == (640, 368)
+    assert pick_bucket(640, 360) == (640, 368)
 
 
 def test_warmup_skips_buckets_when_unroutable(monkeypatch):
     """`serve --warmup` must not spend minutes compiling bucket programs
-    no job can route to (exact mode / auto off-TPU)."""
+    no job can route to (exact and auto modes)."""
     from lut_renderer_tpu.engine import warmup as W
 
     captured = {}
 
-    def fake_warm(prog, batch_size, on_tpu, log):
+    def fake_warm(prog, batch_size, log):
         captured.setdefault("labels", []).append(prog.label)
-        return [{"label": prog.label, "ok": True}]
+        return {"label": prog.label, "ok": True}
 
     monkeypatch.setattr(W, "_warm_one", fake_warm)
     monkeypatch.setenv("LUT_TPU_GEOMETRY", "exact")
     W.warmup_programs()
     assert not any(l.startswith("bucket ") for l in captured["labels"])
     n_exact = len(captured["labels"])
+    captured.clear()
+    monkeypatch.setenv("LUT_TPU_GEOMETRY", "auto")
+    W.warmup_programs()
+    assert len(captured["labels"]) == n_exact
     captured.clear()
     monkeypatch.setenv("LUT_TPU_GEOMETRY", "bucket")
     W.warmup_programs()
@@ -119,7 +122,7 @@ def test_pad_crop_bit_exact(rng, random_lut, label, overrides, bucket):
     class whose stages touch geometry. Bucket dims are arbitrary to the
     math (only the ladder is policy), so small ones keep CPU time down."""
     prep = prepare_lut(random_lut)
-    cfg = RenderConfig(lut_strategy="gather", **overrides)
+    cfg = RenderConfig(**overrides)
     w, h = 100, 56
     y, u, v = _planes(rng, w, h, cfg.in_subsampling, cfg.in_depth)
 
@@ -135,17 +138,16 @@ def test_pad_crop_bit_exact(rng, random_lut, label, overrides, bucket):
         assert np.array_equal(d, c), label
 
 
-def test_pad_crop_bit_exact_fused_layout(rng, random_lut):
-    """The fused YUV->YUV Pallas kernel (interpret on CPU) under
-    pad-and-crop: the serving path ad hoc web submits actually take."""
+def test_pad_crop_bit_exact_rowphase_layout(rng, random_lut):
+    """The row-phase 4:2:0 layout under pad-and-crop: the path ad hoc
+    8-bit 4:2:0 web submits actually take."""
     prep = prepare_lut(random_lut)
-    cfg = RenderConfig(lut_strategy="mxu", phase_layout="fused",
-                       dither="ordered")
+    cfg = RenderConfig(phase_layout="rowphase", dither="ordered")
     w, h = 100, 56
     y, u, v = _planes(rng, w, h, "420", 8)
-    direct = render_yuv_frame(y, u, v, prep, cfg, interpret=True)
+    direct = render_yuv_frame(y, u, v, prep, cfg)
     yp, up, vp = pad_batch_to_bucket(y, u, v, (256, 64), "420")
-    padded = render_yuv_frame(yp, up, vp, prep, cfg, interpret=True)
+    padded = render_yuv_frame(yp, up, vp, prep, cfg)
     cropped = crop_batch_from_bucket(*(np.asarray(p) for p in padded),
                                      w, h, "420")
     for d, c in zip(direct, cropped):
@@ -179,8 +181,7 @@ def test_executor_bucketed_run_matches_exact(tmp_path, monkeypatch,
         lines = []
         spec = build_render_spec(source=clip, output=out, params=params,
                                  lut_path=cube, source_info=info)
-        res = run_stage(spec, info, prep, log_cb=lines.append,
-                        lut_strategy="gather")
+        res = run_stage(spec, info, prep, log_cb=lines.append)
         assert res.ok, res.error
         outs[mode] = out
         logs[mode] = "\n".join(lines)
@@ -235,8 +236,7 @@ def test_identity_resize_is_normalized_away(tmp_path, monkeypatch,
                                  output=tmp_path / f"o_{tag}.mkv",
                                  params=params, lut_path=cube,
                                  source_info=info)
-        res = run_stage(spec, info, prep, log_cb=lines.append,
-                        lut_strategy="gather")
+        res = run_stage(spec, info, prep, log_cb=lines.append)
         assert res.ok, res.error
         # the echoed size must NOT force the exact-shape/resize class
         assert "bucket program" in "\n".join(lines), (tag, lines)

@@ -1,17 +1,20 @@
-"""Parity tests: Pallas MXU LUT kernel vs the colorcore reference interpolators.
+"""Parity tests: the device LUT core (ops.lut3d, XLA gathers) vs the
+colorcore reference interpolators run in NumPy.
 
-Run in interpret mode on CPU (real-TPU execution is exercised by bench.py).
-Small frames keep interpret-mode runtime sane.
+The core is colorcore.interp traced with xp=jax.numpy, so on the CPU
+backend it must agree with the NumPy run to float32 rounding, for every
+interp and the common .cube sizes.
 """
 
 import numpy as np
 import pytest
 
-from lut_renderer_tpu.colorcore import Lut3D, apply_lut
+from lut_renderer_tpu.colorcore import INTERP_MODES, Lut3D, apply_lut
 from lut_renderer_tpu.ops import prepare_lut
 from lut_renderer_tpu.ops.lut3d import apply_lut_planes
 
-H, W = 8, 256  # 2048 pixels -> two BM=1024 blocks for N<=33
+H, W = 8, 256
+SIZES = (17, 33, 65)
 
 
 def _rand_rgb_planes(rng, h=H, w=W):
@@ -27,473 +30,189 @@ def _reference(r, g, b, lut, interp):
     return out[..., 0], out[..., 1], out[..., 2]
 
 
-@pytest.mark.parametrize("interp", ["nearest", "trilinear", "tetrahedral", "pyramid", "prism"])
-def test_mxu_matches_reference_random_lut(interp, random_lut, rng):
-    r, g, b = _rand_rgb_planes(rng)
-    prep = prepare_lut(random_lut)
-    ro, go, bo = apply_lut_planes(r, g, b, prep, interp, precision="exact", interpret=True)
-    rr, gr, br = _reference(r, g, b, random_lut, interp)
-    np.testing.assert_allclose(np.asarray(ro), rr, atol=3e-4, err_msg=interp)  # corrected-bf16 model: 2^-8 * cell spread
-    np.testing.assert_allclose(np.asarray(go), gr, atol=3e-4, err_msg=interp)  # corrected-bf16 model: 2^-8 * cell spread
-    np.testing.assert_allclose(np.asarray(bo), br, atol=3e-4, err_msg=interp)  # corrected-bf16 model: 2^-8 * cell spread
-
-
-@pytest.mark.parametrize("interp", ["trilinear", "tetrahedral"])
-def test_mxu_identity_lut(interp, identity_lut, rng):
-    r, g, b = _rand_rgb_planes(rng)
-    prep = prepare_lut(identity_lut)
-    ro, go, bo = apply_lut_planes(r, g, b, prep, interp, precision="exact", interpret=True)
-    np.testing.assert_allclose(np.asarray(ro), r, atol=3e-4)
-    np.testing.assert_allclose(np.asarray(go), g, atol=3e-4)
-    np.testing.assert_allclose(np.asarray(bo), b, atol=3e-4)
-
-
-def test_mxu_lattice_points_exact(random_lut, rng):
-    n = random_lut.size
-    idx = rng.integers(0, n, size=(H * W, 3))
-    rgb = (idx / (n - 1)).astype(np.float32).reshape(H, W, 3)
-    prep = prepare_lut(random_lut)
-    ro, go, bo = apply_lut_planes(
-        rgb[..., 0], rgb[..., 1], rgb[..., 2], prep, "tetrahedral",
-        precision="exact", interpret=True
-    )
-    want = random_lut.table[idx[:, 0], idx[:, 1], idx[:, 2]].reshape(H, W, 3)
-    np.testing.assert_allclose(np.asarray(ro), want[..., 0], atol=1e-5)
-    np.testing.assert_allclose(np.asarray(bo), want[..., 2], atol=1e-5)
-
-
-def test_mxu_nonaligned_pixel_count(random_lut, rng):
-    """P not a multiple of the block size exercises the zero-padding path."""
-    r, g, b = _rand_rgb_planes(rng, 5, 77)
-    prep = prepare_lut(random_lut)
-    ro, go, bo = apply_lut_planes(r, g, b, prep, "tetrahedral", precision="exact", interpret=True)
-    rr, gr, br = _reference(r, g, b, random_lut, "tetrahedral")
-    np.testing.assert_allclose(np.asarray(ro), rr, atol=3e-4)
-    assert ro.shape == (5, 77)
-
-
-def test_mxu_domain_mapping(rng):
-    lut = Lut3D.identity(9)
-    lut.domain_min = np.array([0.0, 0.0, 0.0], np.float32)
-    lut.domain_max = np.array([0.5, 0.5, 0.5], np.float32)
-    prep = prepare_lut(lut)
-    r = np.full((8, 128), 0.25, np.float32)
-    ro, go, bo = apply_lut_planes(r, r, r, prep, "trilinear", precision="exact", interpret=True)
-    np.testing.assert_allclose(np.asarray(ro), 0.5, atol=1e-6)
-
-
-def test_gather_strategy_matches(random_lut, rng):
-    r, g, b = _rand_rgb_planes(rng, 4, 64)
-    prep = prepare_lut(random_lut)
-    ro, _, _ = apply_lut_planes(r, g, b, prep, "tetrahedral", strategy="gather")
-    rr, _, _ = _reference(r, g, b, random_lut, "tetrahedral")
-    np.testing.assert_allclose(np.asarray(ro), rr, atol=1e-5)
-
-
-def test_edge_values(random_lut):
-    """Inputs exactly 0.0 and 1.0 hit the clamped-corner paths."""
-    r = np.array([[0.0] * 64 + [1.0] * 64], np.float32)
-    prep = prepare_lut(random_lut)
-    for interp in ("nearest", "trilinear", "tetrahedral"):
-        ro, go, bo = apply_lut_planes(r, r, r, prep, interp, precision="exact", interpret=True)
-        n = random_lut.size
-        np.testing.assert_allclose(
-            np.asarray(ro)[0, 0], random_lut.table[0, 0, 0, 0], atol=1e-6
-        )
-        np.testing.assert_allclose(
-            np.asarray(ro)[0, -1], random_lut.table[n - 1, n - 1, n - 1, 0], atol=1e-6
-        )
-
-
-def test_mxu_delta_e_vs_reference(random_lut):
-    """The metric that matters: dE76 of the kernel vs the float reference
-    stays far inside the 0.5 parity budget (corrected-bf16 precision gives
-    ~1e-4 absolute error; worst-case dE on a noisy LUT lands under ~0.1,
-    dominated by dark-tone L* slope). Deterministic rng: the bound is tight
-    enough that draw-dependent worst cases matter."""
-    from lut_renderer_tpu.colorcore import max_delta_e76
-
-    local_rng = np.random.default_rng(77)
-    r, g, b = _rand_rgb_planes(local_rng)
-    prep = prepare_lut(random_lut)
-    for interp in ("trilinear", "tetrahedral"):
-        ro, go, bo = apply_lut_planes(r, g, b, prep, interp, precision="exact", interpret=True)
-        rr, gr, br = _reference(r, g, b, random_lut, interp)
-        got = np.stack([np.asarray(ro), np.asarray(go), np.asarray(bo)], -1)
-        want = np.stack([rr, gr, br], -1)
-        assert max_delta_e76(np.clip(got, 0, 1), np.clip(want, 0, 1)) < 0.1
-
-
-def test_int8_tier_parity(random_lut, rng):
-    """The int8 MXU tier (2x dot throughput) stays within its simulated
-    error: kernel-vs-reference dE76 <= sim prediction + margin, and far
-    inside the 0.5 contract budget for trilinear on this LUT."""
-    from lut_renderer_tpu.colorcore import max_delta_e76
-
-    r, g, b = _rand_rgb_planes(rng)
-    prep = prepare_lut(random_lut)
-    for interp in ("trilinear", "tetrahedral"):
-        sim = prep.mode_error(interp, "int8_fast")
-        ro, go, bo = apply_lut_planes(r, g, b, prep, interp,
-                                      precision="int8_fast", interpret=True)
-        rr, gr, br = _reference(r, g, b, random_lut, interp)
-        got = np.stack([np.asarray(ro), np.asarray(go), np.asarray(bo)], -1)
-        want = np.stack([rr, gr, br], -1)
-        measured = max_delta_e76(np.clip(got, 0, 1), np.clip(want, 0, 1))
-        # the simulator is a probe-sampled estimate; SIM_MARGIN covers the
-        # coverage gap (prepare.py) — assert the same relationship here
-        assert measured <= sim * 1.3 + 0.02, (interp, measured, sim)
-
-
-def test_auto_precision_is_gated_by_simulated_error(random_lut):
-    """"auto" must never resolve to a tier whose simulated error exceeds
-    the budget, and must resolve deterministically (cached)."""
-    from lut_renderer_tpu.ops.prepare import DE76_BUDGET
-
-    prep = prepare_lut(random_lut)
-    for interp in ("trilinear", "tetrahedral"):
-        mode = prep.resolve_precision(interp)
-        if mode != "exact":
-            assert prep.mode_error(interp, mode) <= DE76_BUDGET
-        assert prep.resolve_precision(interp) == mode  # cached, stable
-
-
-def test_auto_precision_respects_budget_end_to_end(rng):
-    """A noisy LUT through precision="auto" stays inside the 0.5 parity
-    contract vs the f32 reference (whatever tier auto picked)."""
-    from lut_renderer_tpu.colorcore import max_delta_e76
-
-    lut = Lut3D.identity(17)
-    lut.table = np.clip(
-        lut.table + rng.uniform(-0.05, 0.05, lut.table.shape).astype(np.float32),
-        0, 1)
-    prep = prepare_lut(lut)
-    r, g, b = _rand_rgb_planes(rng)
-    ro, go, bo = apply_lut_planes(r, g, b, prep, "tetrahedral",
-                                  precision="auto", interpret=True)
-    rr, gr, br = _reference(r, g, b, lut, "tetrahedral")
-    got = np.stack([np.asarray(ro), np.asarray(go), np.asarray(bo)], -1)
-    want = np.stack([rr, gr, br], -1)
-    assert max_delta_e76(np.clip(got, 0, 1), np.clip(want, 0, 1)) < 0.5
-
-
-def _film_lut(n):
-    """Smooth grading-style LUT (S-curve + saturation + split tone)."""
-    ramp = np.linspace(0, 1, n, dtype=np.float32)
-    r, g, b = np.meshgrid(ramp, ramp, ramp, indexing="ij")
-    rgb = np.stack([r, g, b], -1)
-    luma = 0.2126 * r + 0.7152 * g + 0.0722 * b
-    rgb = rgb * rgb * (3 - 2 * rgb) * 0.85 + rgb * 0.15
-    l3 = (0.2126 * rgb[..., 0] + 0.7152 * rgb[..., 1]
-          + 0.0722 * rgb[..., 2])[..., None]
-    rgb = l3 + (rgb - l3) * 1.15
-    rgb[..., 0] += 0.04 * luma * (1 - luma) * 4
-    rgb[..., 2] -= 0.02 * luma
-    rgb = np.clip(rgb, 0, 1) ** np.array([0.97, 1.0, 1.05], np.float32)
+def _noisy_lut(n, seed=42, amp=0.05):
+    rng = np.random.default_rng(seed + n)
     lut = Lut3D.identity(n)
-    lut.table = np.clip(rgb, 0, 1).astype(np.float32)
+    lut.table = np.clip(
+        lut.table + rng.uniform(-amp, amp, lut.table.shape
+                                ).astype(np.float32), 0, 1)
     return lut
 
 
-def test_coarse2_decomposition_matches_reference():
-    """Big-LUT coarse+residual path (65^3 -> 33^3 + int8 residual): the
-    per-axis tap remap onto the coarse grid is exact for separable linear
-    upsampling, so total error is the gated residual numerics (< budget)."""
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("interp", INTERP_MODES)
+def test_lut_core_matches_reference(interp, n, rng):
+    lut = _noisy_lut(n)
+    r, g, b = _rand_rgb_planes(rng)
+    out = apply_lut_planes(r, g, b, prepare_lut(lut), interp)
+    for got, want in zip(out, _reference(r, g, b, lut, interp)):
+        np.testing.assert_allclose(np.asarray(got), want, atol=1e-6,
+                                   err_msg=f"{interp} {n}")
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("interp", ["trilinear", "tetrahedral", "pyramid",
+                                    "prism"])
+def test_lut_core_identity_lut(interp, n, rng):
+    """Every interpolating mode reproduces its input through an identity
+    LUT (nearest snaps to the lattice, so it is covered by the lattice
+    test instead)."""
+    r, g, b = _rand_rgb_planes(rng)
+    ro, go, bo = apply_lut_planes(r, g, b, prepare_lut(Lut3D.identity(n)),
+                                  interp)
+    np.testing.assert_allclose(np.asarray(ro), r, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(go), g, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(bo), b, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("interp", INTERP_MODES)
+def test_lut_core_lattice_points_exact(interp, n, rng):
+    lut = _noisy_lut(n)
+    idx = rng.integers(0, n, size=(H * W, 3))
+    rgb = (idx / (n - 1)).astype(np.float32).reshape(H, W, 3)
+    ro, go, bo = apply_lut_planes(rgb[..., 0], rgb[..., 1], rgb[..., 2],
+                                  prepare_lut(lut), interp)
+    want = lut.table[idx[:, 0], idx[:, 1], idx[:, 2]].reshape(H, W, 3)
+    np.testing.assert_allclose(np.asarray(ro), want[..., 0], atol=1e-5)
+    np.testing.assert_allclose(np.asarray(go), want[..., 1], atol=1e-5)
+    np.testing.assert_allclose(np.asarray(bo), want[..., 2], atol=1e-5)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_lut_core_nonaligned_shapes(n, rng):
+    """Odd plane shapes and a leading batch axis flow through unchanged."""
+    lut = _noisy_lut(n)
+    prep = prepare_lut(lut)
+    for shape in ((5, 77), (3, 5, 7), (1,)):
+        r, g, b = (rng.uniform(0, 1, shape).astype(np.float32)
+                   for _ in range(3))
+        ro, go, bo = apply_lut_planes(r, g, b, prep, "tetrahedral")
+        assert ro.shape == shape and go.shape == shape and bo.shape == shape
+        rr, _, _ = _reference(r, g, b, lut, "tetrahedral")
+        np.testing.assert_allclose(np.asarray(ro), rr, atol=1e-6)
+
+
+@pytest.mark.parametrize("interp", INTERP_MODES)
+def test_lut_core_domain_mapping(interp, rng):
+    """DOMAIN_MIN/MAX map inputs before the lattice math (FFmpeg prelut
+    semantics), including inputs outside the domain (clamped)."""
+    lut = _noisy_lut(9)
+    lut.domain_min = np.array([0.0, 0.1, 0.05], np.float32)
+    lut.domain_max = np.array([0.5, 0.9, 1.0], np.float32)
+    prep = prepare_lut(lut)
+    assert not prep.has_unit_domain
+    r, g, b = _rand_rgb_planes(rng)
+    out = apply_lut_planes(r, g, b, prep, interp)
+    for got, want in zip(out, _reference(r, g, b, lut, interp)):
+        np.testing.assert_allclose(np.asarray(got), want, atol=1e-6)
+    ident = Lut3D.identity(9)
+    ident.domain_max = np.array([0.5, 0.5, 0.5], np.float32)
+    half = np.full((8, 128), 0.25, np.float32)
+    ro, _, _ = apply_lut_planes(half, half, half, prepare_lut(ident),
+                                "trilinear")
+    np.testing.assert_allclose(np.asarray(ro), 0.5, atol=1e-6)
+
+
+def test_unknown_interp_falls_back_to_tetrahedral(random_lut, rng):
+    """The reference validates interp names and falls back to tetrahedral
+    (ffmpeg.py:243-244); the core does the same."""
+    r, g, b = _rand_rgb_planes(rng, 4, 64)
+    ro, _, _ = apply_lut_planes(r, g, b, prepare_lut(random_lut), "cubic")
+    rr, _, _ = _reference(r, g, b, random_lut, "tetrahedral")
+    np.testing.assert_allclose(np.asarray(ro), rr, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("interp", INTERP_MODES)
+def test_edge_values(interp, n):
+    """Inputs exactly 0.0 and 1.0 (and beyond) hit the clamped-corner
+    paths."""
+    lut = _noisy_lut(n)
+    r = np.array([[0.0] * 64 + [1.0] * 60 + [-0.5, 1.5, -1e-7, 1 + 1e-7]],
+                 np.float32)
+    ro, go, bo = apply_lut_planes(r, r, r, prepare_lut(lut), interp)
+    for c, plane in enumerate((ro, go, bo)):
+        plane = np.asarray(plane)
+        np.testing.assert_allclose(plane[0, :64], lut.table[0, 0, 0, c],
+                                   atol=1e-6)
+        np.testing.assert_allclose(plane[0, 64:124],
+                                   lut.table[n - 1, n - 1, n - 1, c],
+                                   atol=1e-6)
+        np.testing.assert_allclose(
+            plane[0, 124:], [lut.table[0, 0, 0, c],
+                             lut.table[n - 1, n - 1, n - 1, c],
+                             lut.table[0, 0, 0, c],
+                             lut.table[n - 1, n - 1, n - 1, c]], atol=1e-6)
+
+
+def test_delta_e_vs_reference(random_lut):
+    """The metric that matters: dE76 of the core vs the float reference is
+    float32 rounding, far inside the 0.5 parity budget."""
     from lut_renderer_tpu.colorcore import max_delta_e76
-    from lut_renderer_tpu.ops.prepare import DE76_BUDGET
 
-    lut = _film_lut(65)
-    prep = prepare_lut(lut)
-    assert prep.coarse is not None and prep.coarse.size == 33
-    rng = np.random.default_rng(9)
-    r, g, b = _rand_rgb_planes(rng, 8, 128)
-    for interp in ("tetrahedral", "trilinear"):
-        mode = prep.resolve_precision(interp)
-        # round-3 ladder: a smooth LUT rides the DIRECT single-plane tier
-        # (measured faster than coarse2 at 65^3); the gated pick must
-        # clear the budget either way
-        assert mode in ("int8_lite", "coarse2f", "coarse2"), mode
-        # exercise BOTH the auto pick and the merged coarse2 kernel
-        for precision in ("auto", "coarse2f"):
-            ro, go, bo = apply_lut_planes(r, g, b, prep, interp,
-                                          precision=precision,
-                                          interpret=True)
-            rr, gr, br = _reference(r, g, b, lut, interp)
-            got = np.stack([np.asarray(ro), np.asarray(go),
-                            np.asarray(bo)], -1)
-            want = np.stack([rr, gr, br], -1)
-            err = max_delta_e76(np.clip(got, 0, 1), np.clip(want, 0, 1))
-            assert err < DE76_BUDGET, (interp, mode, precision, err)
-
-
-def test_coarse2_identity_lut_near_exact():
-    """Identity 65^3 through coarse2: residual is exactly zero, so the
-    decomposition reduces to the coarse term alone."""
-    lut = Lut3D.identity(65)
-    prep = prepare_lut(lut)
-    # data rows are zero (the trailing ones-row is the correction readout)
-    assert float(np.abs(prep.resid_q[: 3 * 65]).max()) == 0.0
-    rng = np.random.default_rng(4)
-    r, g, b = _rand_rgb_planes(rng, 4, 128)
-    ro, go, bo = apply_lut_planes(r, g, b, prep, "tetrahedral",
-                                  precision="coarse2x_tri", interpret=True)
-    np.testing.assert_allclose(np.asarray(ro), r, atol=2e-3)
-    np.testing.assert_allclose(np.asarray(go), g, atol=2e-3)
-    np.testing.assert_allclose(np.asarray(bo), b, atol=2e-3)
+    r, g, b = _rand_rgb_planes(np.random.default_rng(77))
+    prep = prepare_lut(random_lut)
+    for interp in ("trilinear", "tetrahedral"):
+        out = apply_lut_planes(r, g, b, prep, interp)
+        got = np.stack([np.asarray(o) for o in out], -1)
+        want = np.stack(_reference(r, g, b, random_lut, interp), -1)
+        assert max_delta_e76(np.clip(got, 0, 1), np.clip(want, 0, 1)) < 1e-3
 
 
 def test_lut_agnostic_program_reuse(rng):
-    """The table operands ride as jit ARGUMENTS (lut3d.kernel_operands):
-    two different LUTs of the same size/tier must share ONE compiled
-    program (no retrace), and feeding LUT B's operands through a function
-    traced with LUT A must produce LUT B's results. This is the serving
-    contract: a warmed cache runs never-seen .cube files with 0 compiles."""
+    """The table rides as a jit ARGUMENT: two different LUTs of the same
+    size must share ONE compiled program (no retrace), and feeding LUT B's
+    table through a function traced with LUT A must produce LUT B's
+    results. This is the serving contract: a warmed cache runs never-seen
+    .cube files with 0 compiles."""
     import jax
 
-    from lut_renderer_tpu.ops.lut3d import kernel_operands
-
-    def noisy(seed):
-        lut = Lut3D.identity(33)
-        r2 = np.random.default_rng(seed)
-        lut.table = np.clip(
-            lut.table + r2.uniform(-0.04, 0.04, lut.table.shape
-                                   ).astype(np.float32), 0, 1)
-        return lut
-
-    lut_a, lut_b = noisy(1), noisy(2)
+    lut_a, lut_b = _noisy_lut(33, seed=1), _noisy_lut(33, seed=2)
     prep_a, prep_b = prepare_lut(lut_a), prepare_lut(lut_b)
 
     @jax.jit
-    def f(r, g, b, ops):
-        return apply_lut_planes(r, g, b, prep_a, "tetrahedral",
-                                precision="int8_fast", interpret=True,
-                                operands=ops)
+    def f(r, g, b, table):
+        return apply_lut_planes(r, g, b, prep_a, "tetrahedral", table=table)
 
-    r = rng.uniform(0, 1, (8, 128)).astype(np.float32)
-    g = rng.uniform(0, 1, (8, 128)).astype(np.float32)
-    b = rng.uniform(0, 1, (8, 128)).astype(np.float32)
-    ops_a = kernel_operands(prep_a, "tetrahedral", "int8_fast")
-    ops_b = kernel_operands(prep_b, "tetrahedral", "int8_fast")
-    out_a = f(r, g, b, ops_a)
+    r, g, b = _rand_rgb_planes(rng, 8, 128)
+    out_a = f(r, g, b, prep_a.table)
     n_compiles = f._cache_size()
-    out_b = f(r, g, b, ops_b)
+    out_b = f(r, g, b, prep_b.table)
     assert f._cache_size() == n_compiles  # no retrace for the new LUT
-    # and the values are LUT B's, not LUT A's
     rb, gb, bb = _reference(r, g, b, lut_b, "tetrahedral")
-    np.testing.assert_allclose(np.asarray(out_b[0]), rb, atol=2e-3)
-    np.testing.assert_allclose(np.asarray(out_b[2]), bb, atol=2e-3)
-    ra, _, _ = _reference(r, g, b, lut_a, "tetrahedral")
+    np.testing.assert_allclose(np.asarray(out_b[0]), rb, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(out_b[2]), bb, atol=1e-6)
     assert not np.allclose(np.asarray(out_a[0]), np.asarray(out_b[0]))
 
 
 def test_make_render_fn_operand_args(rng):
-    """make_render_fn passes the LUT operands as device arguments; results
-    must match the direct (constant-baked) render path exactly."""
+    """make_render_fn passes the LUT table as a device argument; results
+    must match the direct (constant-baked) render path exactly, and a
+    second LUT of the same size reuses the cached jitted function."""
     from lut_renderer_tpu.ops.render import (RenderConfig, make_render_fn,
+                                             prep_static_key,
                                              render_yuv_frame)
 
-    lut = Lut3D.identity(17)
-    lut.table = np.clip(
-        lut.table + rng.uniform(-0.03, 0.03, lut.table.shape
-                                ).astype(np.float32), 0, 1)
-    prep = prepare_lut(lut)
-    cfg = RenderConfig(interp="tetrahedral", lut_strategy="mxu")
+    prep = prepare_lut(_noisy_lut(17, amp=0.03))
+    cfg = RenderConfig(interp="tetrahedral")
     y = rng.integers(16, 236, (2, 32, 128), dtype=np.uint8)
     u = rng.integers(16, 241, (2, 16, 64), dtype=np.uint8)
     v = rng.integers(16, 241, (2, 16, 64), dtype=np.uint8)
-    fn = make_render_fn(prep, cfg, interpret=True)
-    got = fn(y, u, v)
-    want = render_yuv_frame(y, u, v, prep, cfg, interpret=True)
+    got = make_render_fn(prep, cfg)(y, u, v)
+    want = render_yuv_frame(y, u, v, prep, cfg)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_noisy_lut_auto_tier_clears_budget():
-    """A noise LUT is the adversarial case for every reduced tier: whatever
-    auto resolves to must still clear the simulated dE76 budget."""
-    rng = np.random.default_rng(12)
-    lut = Lut3D.identity(65)
-    lut.table = np.clip(
-        lut.table + rng.uniform(-0.05, 0.05, lut.table.shape).astype(np.float32),
-        0, 1)
-    prep = prepare_lut(lut)
-    from lut_renderer_tpu.ops.prepare import DE76_BUDGET, SIM_MARGIN
-
-    mode = prep.resolve_precision("tetrahedral")
-    if mode != "exact":
-        assert prep.mode_error("tetrahedral", mode) * SIM_MARGIN <= DE76_BUDGET
-
-
-def test_pyramid_int8_native(random_lut, rng):
-    """Pyramid's difference pass has NEGATIVE weights. The hoisted-dot int8
-    body applies weights as exact f32 post-dot factors, so pyramid runs the
-    int8 tier natively (historically it was structurally excluded: the
-    retired in-dot offset coding round(w*254)-127 underflowed for w < 0)."""
-    prep = prepare_lut(random_lut)
-    # auto resolves a reduced tier (no more structural exact-only routing),
-    # and the int8 tier specifically gates in for this LUT
-    assert prep.resolve_precision("pyramid") != "exact"
-    from lut_renderer_tpu.ops.prepare import DE76_BUDGET, SIM_MARGIN
-    assert prep.mode_error("pyramid", "int8_fast") * SIM_MARGIN <= DE76_BUDGET
-    r, g, b = _rand_rgb_planes(rng, 4, 128)
-    ro, go, bo = apply_lut_planes(r, g, b, prep, "pyramid",
-                                  precision="int8_fast", interpret=True)
-    rr, gr, br = _reference(r, g, b, random_lut, "pyramid")
-    np.testing.assert_allclose(np.asarray(ro), rr, atol=3e-4)
-
-
-def test_int8_wpair_tier_near_exact(random_lut, rng):
-    """The int8 weight-pair tier (1.5 dots/pass) is near-exact: table error
-    1.6e-5, weight error 1.5e-5 — comparable to corrected-bf16."""
-    from lut_renderer_tpu.colorcore import max_delta_e76
-
-    r, g, b = _rand_rgb_planes(rng, 4, 256)
-    prep = prepare_lut(random_lut)
-    ro, go, bo = apply_lut_planes(r, g, b, prep, "tetrahedral",
-                                  precision="int8", interpret=True)
-    rr, gr, br = _reference(r, g, b, random_lut, "tetrahedral")
-    got = np.stack([np.asarray(ro), np.asarray(go), np.asarray(bo)], -1)
-    want = np.stack([rr, gr, br], -1)
-    assert max_delta_e76(np.clip(got, 0, 1), np.clip(want, 0, 1)) < 0.05
-
-
-def test_49cube_coarse_decomposition(rng):
-    """49^3 (an odd in-the-wild size): coarse grid is 25, decomposition and
-    plain tiers both stay inside the contract."""
-    from lut_renderer_tpu.colorcore import max_delta_e76
-
-    lut = Lut3D.identity(49)
-    t = lut.table
-    lut.table = np.clip(t * t * (3 - 2 * t) * 0.9 + t * 0.1, 0, 1)
-    prep = prepare_lut(lut)
-    assert prep.coarse is not None and prep.coarse.size == 25
-    r, g, b = _rand_rgb_planes(rng, 4, 256)
-    ro, go, bo = apply_lut_planes(r, g, b, prep, "tetrahedral",
-                                  precision="auto", interpret=True)
-    rr, gr, br = _reference(r, g, b, lut, "tetrahedral")
-    got = np.stack([np.asarray(ro), np.asarray(go), np.asarray(bo)], -1)
-    want = np.stack([rr, gr, br], -1)
-    assert max_delta_e76(np.clip(got, 0, 1), np.clip(want, 0, 1)) < 0.5
-
-
-def test_auto_gate_accepts_production_style_luts():
-    """The point of per-LUT gating is that REAL grading LUTs get int8 speed
-    while pathological ones fall back — if every realistic style resolved to
-    'exact' the fast tiers would be dead weight. Five production-style looks
-    at 33^3 must all clear the gate for tetrahedral."""
-    ramp = np.linspace(0, 1, 33, dtype=np.float32)
-    r, g, b = np.meshgrid(ramp, ramp, ramp, indexing="ij")
-    rgb0 = np.stack([r, g, b], -1)
-    luma = (0.2126 * r + 0.7152 * g + 0.0722 * b)[..., None]
-
-    def mk(table):
-        lut = Lut3D.identity(33)
-        lut.table = np.clip(table, 0, 1).astype(np.float32)
-        return lut
-
-    scurve = rgb0 * rgb0 * (3 - 2 * rgb0)
-    styles = {
-        "film_scurve": 0.85 * scurve + 0.15 * rgb0,
-        "log_to_709": np.clip((np.power(10.0, (rgb0 - 0.42) / 0.26) - 0.037)
-                              / 5.0, 0, 1) ** (1 / 2.2),
-        "bleach_bypass": 0.6 * rgb0 + 0.4 * luma,
-        "day_for_night": (0.55 * rgb0 * np.array([0.7, 0.85, 1.15],
-                                                 np.float32)),
-        "warm_lift": rgb0 ** np.array([0.92, 1.0, 1.1], np.float32) * 0.97
-                     + 0.03,
-    }
-    resolved = {}
-    for name, table in styles.items():
-        prep = prepare_lut(mk(table))
-        resolved[name] = prep.resolve_precision("tetrahedral")
-    fast_tiers = {m for m in resolved.values() if m != "exact"}
-    assert len(fast_tiers) >= 1 and sum(
-        1 for m in resolved.values() if m != "exact") >= 4, resolved
-    # the single-plane int8 default (round-3 ladder head) must carry most
-    # real looks (it is the headline tier; if it stopped gating in,
-    # throughput silently drops to the next rung)
-    assert sum(1 for m in resolved.values()
-               if m in ("int8_lite", "fast")) >= 3, resolved
-    assert any(m == "int8_lite" for m in resolved.values()), resolved
-
-
-def test_coarse2_with_nonunit_domain(rng):
-    """A 65-cube LUT with DOMAIN_MAX != 1 through the coarse decomposition:
-    domain mapping happens before lattice math, so the remap stays exact."""
-    from lut_renderer_tpu.colorcore import max_delta_e76
-    from lut_renderer_tpu.colorcore.interp import _FUNCS
-
-    lut = _film_lut(65)
-    lut.domain_min = np.array([0.0, 0.0, 0.0], np.float32)
-    lut.domain_max = np.array([0.5, 0.5, 0.5], np.float32)
-    prep = prepare_lut(lut)
-    mode = prep.resolve_precision("tetrahedral")
-    r, g, b = _rand_rgb_planes(rng, 4, 256)
-    r, g, b = r * 0.5, g * 0.5, b * 0.5  # inside the domain
-    ro, go, bo = apply_lut_planes(r, g, b, prep, "tetrahedral",
-                                  precision="auto", interpret=True)
-    rgb = np.stack([r, g, b], -1)
-    want = _FUNCS["tetrahedral"](rgb, lut.table, lut.domain_min,
-                                 lut.domain_max, xp=np)
-    got = np.stack([np.asarray(ro), np.asarray(go), np.asarray(bo)], -1)
-    err = max_delta_e76(np.clip(got, 0, 1), np.clip(want, 0, 1))
-    assert err < 0.5, (mode, err)
-
-
-def test_int8_lite_tier_parity(random_lut, rng):
-    """int8_lite (single q1 plane, half the dot) stays within its simulated
-    error bound and inside the contract budget for this grading-style LUT."""
-    from lut_renderer_tpu.colorcore import max_delta_e76
-    from lut_renderer_tpu.ops.prepare import DE76_BUDGET, SIM_MARGIN
-
-    r, g, b = _rand_rgb_planes(rng)
-    prep = prepare_lut(random_lut)
-    for interp in ("trilinear", "tetrahedral"):
-        sim = prep.mode_error(interp, "int8_lite")
-        assert sim * SIM_MARGIN <= DE76_BUDGET  # gates in on typical LUTs
-        ro, go, bo = apply_lut_planes(r, g, b, prep, interp,
-                                      precision="int8_lite", interpret=True)
-        rr, gr, br = _reference(r, g, b, random_lut, interp)
-        got = np.stack([np.asarray(ro), np.asarray(go), np.asarray(bo)], -1)
-        want = np.stack([rr, gr, br], -1)
-        measured = max_delta_e76(np.clip(got, 0, 1), np.clip(want, 0, 1))
-        assert measured <= sim * 1.3 + 0.02, (interp, measured, sim)
-
-
-def test_fast_tier_detrended_parity(random_lut, rng):
-    """The detrended-bf16 "fast" tier (the usual auto default) stays within
-    its simulated bound: 2^-9 of the grading DELTA, not of the table value,
-    because the stored plane is identity-detrended with the exact analytic
-    identity added in-kernel."""
-    from lut_renderer_tpu.colorcore import max_delta_e76
-    from lut_renderer_tpu.ops.prepare import DE76_BUDGET, SIM_MARGIN
-
-    r, g, b = _rand_rgb_planes(rng)
-    prep = prepare_lut(random_lut)
-    for interp in ("trilinear", "tetrahedral"):
-        sim = prep.mode_error(interp, "fast")
-        assert sim * SIM_MARGIN <= DE76_BUDGET  # gates in on typical LUTs
-        ro, go, bo = apply_lut_planes(r, g, b, prep, interp,
-                                      precision="fast", interpret=True)
-        rr, gr, br = _reference(r, g, b, random_lut, interp)
-        got = np.stack([np.asarray(ro), np.asarray(go), np.asarray(bo)], -1)
-        want = np.stack([rr, gr, br], -1)
-        measured = max_delta_e76(np.clip(got, 0, 1), np.clip(want, 0, 1))
-        assert measured <= sim * 1.3 + 0.02, (interp, measured, sim)
+    other = prepare_lut(_noisy_lut(17, seed=5))
+    assert prep_static_key(other, cfg) == prep_static_key(prep, cfg)
+    assert prep_static_key(other, RenderConfig(apply_lut=False)) is None
 
 
 @pytest.mark.parametrize("n", [16, 32, 64])
 def test_even_sized_luts(n, rng):
-    """Even grid sizes (16/32/64 are common .cube sizes) through the
-    parity-quadrant kernels, including exact-1.0 inputs that hit the
-    p == n-1 clamp. The clamp's even-line target is out of quadrant range
-    for even n, but any p == n-1 tap has d == 0, so every interp's
-    effective weight there is zero (see _parity_split) — this test pins
-    that invariant."""
-    lut = Lut3D.identity(n)
-    lut.table = np.clip(
-        lut.table + rng.uniform(-0.05, 0.05, lut.table.shape
-                                ).astype(np.float32), 0, 1)
+    """Even grid sizes (16/32/64 are common .cube sizes), including exact
+    1.0 inputs that hit the p == n-1 clamp, for every interp."""
+    lut = _noisy_lut(n)
     prep = prepare_lut(lut)
     P = 1024
     rs = rng.uniform(0, 1, (1, P)).astype(np.float32)
@@ -502,13 +221,8 @@ def test_even_sized_luts(n, rng):
     gs[0, :64] = 1.0           # ties + clamp paths
     bs[0, :32] = 1.0
     rs[0, :8] = 1.0
-    for interp in ("trilinear", "tetrahedral", "pyramid", "prism"):
-        ro, go, bo = apply_lut_planes(rs, gs, bs, prep, interp,
-                                      precision="int8_fast", interpret=True)
-        rr, gr, br = _reference(rs, gs, bs, lut, interp)
-        np.testing.assert_allclose(np.asarray(ro), rr, atol=1e-4,
-                                   err_msg=f"{n} {interp}")
-        np.testing.assert_allclose(np.asarray(go), gr, atol=1e-4,
-                                   err_msg=f"{n} {interp}")
-        np.testing.assert_allclose(np.asarray(bo), br, atol=1e-4,
-                                   err_msg=f"{n} {interp}")
+    for interp in INTERP_MODES:
+        out = apply_lut_planes(rs, gs, bs, prep, interp)
+        for got, want in zip(out, _reference(rs, gs, bs, lut, interp)):
+            np.testing.assert_allclose(np.asarray(got), want, atol=1e-6,
+                                       err_msg=f"{n} {interp}")

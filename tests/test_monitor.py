@@ -66,7 +66,7 @@ def test_render_frame_rows_and_truncation():
 
 
 def test_handle_key_cancel_semantics():
-    mgr = TaskManager(lut_strategy="gather")
+    mgr = TaskManager()
     done = _mk_task(0, TaskStatus.COMPLETED, 100)
     pend = _mk_task(1)
     mgr.add_tasks([done, pend])
@@ -100,7 +100,7 @@ def test_monitor_cancels_one_of_three_live_tasks(tmp_path):
             source_info=info,
         )
 
-    mgr = TaskManager(max_concurrency=1, lut_strategy="gather")
+    mgr = TaskManager(max_concurrency=1)
     tasks = [task(0), task(1), task(2)]
     mgr.add_tasks(tasks)
     stream = io.StringIO()
@@ -120,7 +120,7 @@ def test_monitor_cancels_one_of_three_live_tasks(tmp_path):
 
 
 def test_monitor_quit_key_stops_view_not_queue(tmp_path):
-    mgr = TaskManager(lut_strategy="gather")
+    mgr = TaskManager()
     t = _mk_task(0)
     mgr.add_task(t)
     stream = io.StringIO()

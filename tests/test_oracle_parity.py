@@ -2,7 +2,7 @@
 
 This is the headline correctness gate from BASELINE.md: max dE76 < 0.5 on
 both interpolation modes. Measured here in float (gbrpf32) against the
-colorcore reference; the TPU kernel is tied to colorcore by test_lut3d_op
+colorcore reference; the device LUT core is tied to colorcore by test_lut3d_op
 (maxerr ~1e-7), so transitively the kernel matches lut3d.
 """
 
@@ -79,10 +79,10 @@ def test_parity_65cube(tmp_path):
 
 
 def test_auto_kernel_vs_ffmpeg_lut3d_direct(cube33, rng):
-    """The PRODUCTION path, end to end: the MXU kernel at precision="auto"
-    (whatever tier gates in for this LUT) directly against FFmpeg's own
-    lut3d output — not via the colorcore reference. This is the same
-    contract bench.py reports from the chip (max_dE76_vs_lut3d)."""
+    """The PRODUCTION path, end to end: the device LUT core directly
+    against FFmpeg's own lut3d output — not via the colorcore reference.
+    This is the same contract bench.py reports from the device
+    (max_dE76_vs_lut3d)."""
     import jax.numpy as jnp
 
     from lut_renderer_tpu.ops import prepare_lut
@@ -93,12 +93,9 @@ def test_auto_kernel_vs_ffmpeg_lut3d_direct(cube33, rng):
     with Lut3DOracle(path, "tetrahedral", "gbrpf32le", 64, 64) as oracle:
         ffm = oracle.apply_rgb_float(rgb)
     prep = prepare_lut(lut)
-    tier = prep.resolve_precision("tetrahedral", "auto")
-    assert tier != "exact"  # a reduced tier must carry the contract
     ro, go, bo = apply_lut_planes(
         jnp.asarray(rgb[..., 0]), jnp.asarray(rgb[..., 1]),
-        jnp.asarray(rgb[..., 2]), prep, "tetrahedral", precision="auto",
-        interpret=True)
+        jnp.asarray(rgb[..., 2]), prep, "tetrahedral")
     ours = np.stack([np.asarray(ro), np.asarray(go), np.asarray(bo)], -1)
     de = max_delta_e76(np.clip(ffm, 0, 1), np.clip(ours, 0, 1))
-    assert de < 0.5, f"auto tier {tier}: dE76 {de} vs real lut3d"
+    assert de < 0.5, f"dE76 {de} vs real lut3d"

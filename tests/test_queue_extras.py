@@ -31,7 +31,7 @@ def _task(clip, out):
 
 
 def test_reprocess(clip, tmp_path):
-    mgr = TaskManager(lut_strategy="gather")
+    mgr = TaskManager()
     t = _task(clip, tmp_path / "r_out.mp4")
     mgr.add_task(t)
     mgr.start_all()
@@ -82,13 +82,38 @@ def test_queue_save_load_roundtrip(clip, tmp_path):
     assert t_done.params.video_codec == "mpeg4"
 
 
+def test_queue_file_from_older_version_loads(tmp_path, monkeypatch):
+    """Queue and settings files written when the LUT kernel had options
+    (tests/data/legacy_*.json: strategy and precision keys) still load:
+    the unknown keys are ignored, wherever they sit."""
+    import json
+    import shutil
+
+    from lut_renderer_tpu.app import settings as settings_mod
+
+    data = Path(__file__).resolve().parent / "data"
+    mgr = TaskManager()
+    assert mgr.load_queue(data / "legacy_queue.json", probe=False) == 1
+    task = mgr.tasks["old-1"]
+    assert task.status == TaskStatus.PENDING
+    assert task.params == ProcessingParams(video_codec="mpeg4")
+
+    monkeypatch.setenv("LUT_TPU_CONFIG_DIR", str(tmp_path / "cfg"))
+    (tmp_path / "cfg").mkdir()
+    shutil.copy(data / "legacy_settings.json", settings_mod.settings_path())
+    loaded = settings_mod.load_settings()
+    assert loaded == json.loads((data / "legacy_settings.json").read_text())
+    params = ProcessingParams.from_dict(loaded["last_params"])
+    assert params == ProcessingParams(video_codec="ffv1")
+
+
 def test_cli_resume_runs_pending(clip, tmp_path, capsys):
     mgr = TaskManager()
     t = _task(clip, tmp_path / "res_out.mp4")
     mgr.add_task(t)
     qfile = tmp_path / "q.json"
     mgr.save_queue(qfile)
-    rc = cli_main(["resume", str(qfile), "--lut-strategy", "gather"])
+    rc = cli_main(["resume", str(qfile)])
     out = capsys.readouterr().out
     assert "loaded 1 tasks (1 pending)" in out
     assert rc == 0
@@ -147,10 +172,9 @@ def test_resume_redo_reenqueues_finished(tmp_path):
     rc = cli_main(["render", str(clip), "--lut", str(cube),
                    "--codec", "mpeg4", "--bitrate", "1M",
                    "--out-dir", str(tmp_path / "out"),
-                   "--lut-strategy", "gather",
                    "--save-queue", str(q)])
     assert rc == 0
-    rc = cli_main(["resume", str(q), "--redo", "--lut-strategy", "gather"])
+    rc = cli_main(["resume", str(q), "--redo"])
     assert rc == 0
     outs = sorted(p.name for p in (tmp_path / "out").glob("*.mp4"))
     assert outs == ["c_out.mp4", "c_out_1.mp4"]

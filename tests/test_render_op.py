@@ -1,4 +1,4 @@
-"""Tests for the planar pixel ops and the fused render op (CPU, interpret)."""
+"""Tests for the planar pixel ops and the fused render op (CPU)."""
 
 import numpy as np
 import pytest
@@ -64,7 +64,7 @@ def test_render_identity_lut_roundtrip(rng):
     v = rng.integers(118, 138, (8, 128), dtype=np.uint8)
     cfg = RenderConfig(chroma_up="nearest")
     prep = prepare_lut(Lut3D.identity(17))
-    yq, uq, vq = render_yuv_frame(y, u, v, prep, cfg, interpret=True)
+    yq, uq, vq = render_yuv_frame(y, u, v, prep, cfg)
     assert yq.shape == y.shape and uq.shape == u.shape
     dy = np.abs(np.asarray(yq).astype(int) - y.astype(int))
     assert np.median(dy) <= 1.0
@@ -82,7 +82,7 @@ def test_render_matches_reference_pipeline(rng):
     lut.table = np.clip(lut.table ** 1.2, 0, 1).astype(np.float32)
     prep = prepare_lut(lut)
     cfg = RenderConfig(interp="trilinear")
-    yq, uq, vq = render_yuv_frame(y, u, v, prep, cfg, interpret=True)
+    yq, uq, vq = render_yuv_frame(y, u, v, prep, cfg)
 
     # NumPy reference
     uf = np.repeat(np.repeat(u, 2, 0), 2, 1).astype(np.float32)
@@ -106,7 +106,7 @@ def test_render_range_normalization_full_to_tv(rng):
     v = np.full((4, 64), 128, np.uint8)
     cfg = RenderConfig(in_full_range=True, work_full_range=False,
                        apply_lut=False)
-    yq, uq, vq = render_yuv_frame(y, u, v, None, cfg, interpret=True)
+    yq, uq, vq = render_yuv_frame(y, u, v, None, cfg)
     assert int(np.asarray(yq)[0, 0]) == 235
     assert int(np.asarray(uq)[0, 0]) == 128
 
@@ -117,7 +117,7 @@ def test_render_10bit_to_8bit(rng):
     v = rng.integers(472, 552, (8, 128), dtype=np.uint16)
     cfg = RenderConfig(in_depth=10, out_depth=8, dither="ordered")
     prep = prepare_lut(Lut3D.identity(17))
-    yq, uq, vq = render_yuv_frame(y, u, v, prep, cfg, interpret=True)
+    yq, uq, vq = render_yuv_frame(y, u, v, prep, cfg)
     assert yq.dtype == np.uint8
     # 10-bit 4x scale preserved through the pipeline
     dy = np.abs(np.asarray(yq).astype(float) - y.astype(float) / 4.0)
@@ -129,12 +129,11 @@ def test_render_batched(rng):
     us = np.stack([_frame(rng)[1] for _ in range(3)])
     vs = np.stack([_frame(rng)[2] for _ in range(3)])
     prep = prepare_lut(Lut3D.identity(9))
-    fn = make_render_fn(prep, RenderConfig(), interpret=True)
+    fn = make_render_fn(prep, RenderConfig())
     yq, uq, vq = fn(ys, us, vs)
     assert yq.shape == ys.shape
     # batch order preserved: each frame matches its single-frame render
-    y0, u0, v0 = render_yuv_frame(ys[1], us[1], vs[1], prep, RenderConfig(),
-                                  interpret=True)
+    y0, u0, v0 = render_yuv_frame(ys[1], us[1], vs[1], prep, RenderConfig())
     np.testing.assert_array_equal(np.asarray(yq[1]), np.asarray(y0))
 
 
@@ -152,7 +151,7 @@ def test_render_dE_vs_float_reference(random_lut):
     v = rng.integers(110, 146, (h // 2, w // 2), dtype=np.uint8)
     prep = prepare_lut(random_lut)
     cfg = RenderConfig(interp="tetrahedral", chroma_up="nearest")
-    yq, uq, vq = render_yuv_frame(y, u, v, prep, cfg, interpret=True)
+    yq, uq, vq = render_yuv_frame(y, u, v, prep, cfg)
 
     # float reference path (no quantization)
     uf = np.repeat(np.repeat(u, 2, 0), 2, 1).astype(np.float32)
@@ -187,7 +186,7 @@ def test_render_odd_tile_sizes(rng):
     u = rng.integers(118, 138, (27, 38), dtype=np.uint8)
     v = rng.integers(118, 138, (27, 38), dtype=np.uint8)
     prep = prepare_lut(Lut3D.identity(9))
-    yq, uq, vq = render_yuv_frame(y, u, v, prep, RenderConfig(), interpret=True)
+    yq, uq, vq = render_yuv_frame(y, u, v, prep, RenderConfig())
     assert yq.shape == (54, 76) and uq.shape == (27, 38)
     dy = np.abs(np.asarray(yq).astype(int) - y.astype(int))
     assert dy.max() <= 2

@@ -1,9 +1,8 @@
 """Row-phase 420 layout: bit-exactness vs the plain full-res layout.
 
 The row-phase path (ops/render._render_rowphase_420) re-orders the 420
-pipeline into half-height phase space (measured ~3.5% faster fused frames at
-4K/8K on-chip — experiments/FINDINGS.md "Phase-decomposed 420 pipeline"). It
-must be BIT-identical to the plain layout for every applicable config: the
+pipeline into half-height phase space; whether that pays on the GPU is a
+measurement still to make (ROADMAP Speed 4). It must be BIT-identical to the plain layout for every applicable config: the
 same scalar ops run on the same values, dither offsets are phase-mapped.
 Mirrors the reference's invariant that the filter graph output is layout
 independent (lut3d operates per-pixel: FFmpeg vf_lut3d interp_* per-sample).
@@ -45,9 +44,8 @@ def _planes(rng, b, h, w, depth):
 def _assert_layouts_equal(prep, cfg, b=2, h=48, w=64):
     rng = np.random.default_rng(7)
     y, u, v = _planes(rng, b, h, w, cfg.in_depth)
-    got = render_yuv_frame(y, u, v, prep, cfg, interpret=True)
-    want = render_yuv_frame(y, u, v, prep, replace(cfg, phase_layout="plain"),
-                            interpret=True)
+    got = render_yuv_frame(y, u, v, prep, cfg)
+    want = render_yuv_frame(y, u, v, prep, replace(cfg, phase_layout="plain"))
     for name, a, e in zip("yuv", got, want):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(e),
                                       err_msg=f"plane {name} cfg={cfg}")
@@ -61,7 +59,7 @@ def test_rowphase_bit_exact_dithers(prep, dither):
 @pytest.mark.parametrize("interp", ["trilinear", "tetrahedral"])
 def test_rowphase_bit_exact_interps(prep, interp):
     _assert_layouts_equal(
-        prep, RenderConfig(interp=interp, lut_strategy="gather"))
+        prep, RenderConfig(interp=interp))
 
 
 def test_rowphase_bit_exact_10bit_full_range(prep):
@@ -79,10 +77,9 @@ def test_rowphase_bit_exact_no_lut(prep):
     rng = np.random.default_rng(9)
     y, u, v = _planes(rng, 1, 32, 48, 8)
     cfg = RenderConfig(apply_lut=False)
-    got = render_yuv_frame(y, u, v, None, cfg, interpret=True)
+    got = render_yuv_frame(y, u, v, None, cfg)
     want = render_yuv_frame(y, u, v, None,
-                            replace(cfg, phase_layout="plain"),
-                            interpret=True)
+                            replace(cfg, phase_layout="plain"))
     for a, e in zip(got, want):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(e))
 
@@ -150,7 +147,6 @@ def test_rowphase_fuzz_random_configs(prep):
             interp=str(rng.choice(["trilinear", "tetrahedral"])),
             dither=str(rng.choice(["none", "ordered", "random"])),
             requantize_intermediate=bool(rng.integers(2)),
-            lut_strategy="gather",
         )
         _assert_layouts_equal(prep, cfg, b=1, h=32, w=48)
 
@@ -160,5 +156,4 @@ def test_phase_layout_validated():
     y, u, v = _planes(rng, 1, 16, 16, 8)
     with pytest.raises(ValueError):
         render_yuv_frame(y, u, v, None,
-                         RenderConfig(apply_lut=False, phase_layout="Auto"),
-                         interpret=True)
+                         RenderConfig(apply_lut=False, phase_layout="Auto"))

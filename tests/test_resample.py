@@ -117,13 +117,12 @@ def test_render_resize_uses_swscale_model(tmp_path):
     u = rng.integers(0, 256, (h // 2, w // 2), np.uint8)
     v = rng.integers(0, 256, (h // 2, w // 2), np.uint8)
 
-    cfg = RenderConfig(resize=(16, 12), apply_lut=False,
-                       lut_strategy="gather")
+    cfg = RenderConfig(resize=(16, 12), apply_lut=False)
     ya, ua, va = render_yuv_frame(jnp.asarray(y), jnp.asarray(u),
-                                  jnp.asarray(v), None, cfg, interpret=True)
+                                  jnp.asarray(v), None, cfg)
     assert ya.shape == (12, 16) and ua.shape == (6, 8)
 
-    fn = make_render_fn(None, cfg, interpret=True)
+    fn = make_render_fn(None, cfg)
     yb, ub, vb = fn(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v))
     np.testing.assert_array_equal(np.asarray(ya), np.asarray(yb))
     np.testing.assert_array_equal(np.asarray(ua), np.asarray(ub))

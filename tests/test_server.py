@@ -16,7 +16,7 @@ def served(tmp_path):
     clip = make_gradient_clip(tmp_path / "c.mp4", 64, 64, fps=25.0, frames=6)
     cube = write_cube_file(tmp_path / "l.cube", Lut3D.identity(5))
     sock = tmp_path / "lut.sock"
-    server = QueueServer(sock, max_concurrency=2, lut_strategy="gather")
+    server = QueueServer(sock, max_concurrency=2)
     server.start()
     yield server, sock, clip, cube, tmp_path
     server.stop()
@@ -198,7 +198,7 @@ def test_serve_queue_file_restart_recovery(tmp_path):
     cube = write_cube_file(tmp_path / "l.cube", Lut3D.identity(5))
     qf = tmp_path / "queue.json"
     sock = tmp_path / "a.sock"
-    server = QueueServer(sock, max_concurrency=1, lut_strategy="gather",
+    server = QueueServer(sock, max_concurrency=1,
                          queue_file=qf)
     server.start()
     resp = request(sock, {"op": "submit", "files": [str(clip)],
@@ -217,7 +217,7 @@ def test_serve_queue_file_restart_recovery(tmp_path):
     saved["tasks"][0]["progress"] = 37
     qf.write_text(json.dumps(saved))
     sock2 = tmp_path / "b.sock"
-    server2 = QueueServer(sock2, max_concurrency=1, lut_strategy="gather",
+    server2 = QueueServer(sock2, max_concurrency=1,
                           queue_file=qf)
     server2.start()
     try:
@@ -234,7 +234,7 @@ def test_serve_queue_file_corrupt_preserved(tmp_path):
     (.corrupt) so the daemon's fresh persists cannot destroy evidence."""
     qf = tmp_path / "queue.json"
     qf.write_text("{broken")
-    server = QueueServer(tmp_path / "c.sock", lut_strategy="gather",
+    server = QueueServer(tmp_path / "c.sock",
                          queue_file=qf)
     server.start()
     try:
@@ -254,8 +254,7 @@ def test_submit_without_codec_gets_available_encoder(tmp_path):
     from lut_renderer_tpu.app.defaults import mode_template
 
     clip = make_gradient_clip(tmp_path / "c.mp4", 64, 48, frames=3)
-    server = QueueServer(tmp_path / "s.sock", max_concurrency=1,
-                         lut_strategy="gather")
+    server = QueueServer(tmp_path / "s.sock", max_concurrency=1)
     server.manager.start_all = lambda: None  # inspect params, don't render
     resp = server._submit({"files": [str(clip)],
                            "out_dir": str(tmp_path / "out")})

@@ -64,7 +64,7 @@ def test_signal_bad_listener_does_not_break():
 
 
 def test_manager_runs_queue(clip, lut, tmp_path):
-    mgr = TaskManager(max_concurrency=2, lut_strategy="gather")
+    mgr = TaskManager(max_concurrency=2)
     events = {"progress": [], "status": [], "finished": 0, "logs": []}
     mgr.task_progress.connect(lambda tid, p: events["progress"].append(p))
     mgr.task_updated.connect(lambda tid: events["status"].append(
@@ -89,7 +89,7 @@ def test_manager_runs_queue(clip, lut, tmp_path):
 
 
 def test_manager_cancel_pending(clip, lut, tmp_path):
-    mgr = TaskManager(max_concurrency=1, lut_strategy="gather")
+    mgr = TaskManager(max_concurrency=1)
     t1 = _task(clip, lut, tmp_path / "c1_out.mov")
     t2 = _task(clip, lut, tmp_path / "c2_out.mov")
     mgr.add_tasks([t1, t2])
@@ -102,7 +102,7 @@ def test_manager_cancel_pending(clip, lut, tmp_path):
 
 
 def test_manager_clear_and_remove(clip, lut, tmp_path):
-    mgr = TaskManager(lut_strategy="gather")
+    mgr = TaskManager()
     t1 = _task(clip, lut, tmp_path / "d1_out.mov")
     mgr.add_task(t1)
     t1.status = TaskStatus.COMPLETED
@@ -123,7 +123,7 @@ def test_runner_pro_mode_two_stages(clip, lut, tmp_path):
     )
     task = _task(clip, lut, tmp_path / "pro_out.mp4", mode="pro",
                  intermediate=intermediate, params=params)
-    runner = TaskRunner(task, lut_strategy="gather")
+    runner = TaskRunner(task)
     logs, progress = [], []
     runner.log.connect(lambda tid, m: logs.append(m))
     runner.progress.connect(lambda tid, p: progress.append(p))
@@ -161,7 +161,7 @@ def test_runner_failure_cleans_master(clip, lut, tmp_path):
     params = ProcessingParams(processing_mode="pro", video_codec="libx264")
     task = _task(clip, lut, tmp_path / "fail_out.mp4", mode="pro",
                  intermediate=intermediate, params=params)
-    runner = TaskRunner(task, lut_strategy="gather")
+    runner = TaskRunner(task)
     statuses = []
     runner.finished.connect(lambda tid, s: statuses.append(s))
     runner.run()
@@ -173,7 +173,7 @@ def test_runner_cover_extraction(clip, lut, tmp_path):
     cover = tmp_path / "c_cover.jpg"
     params = ProcessingParams(video_codec="mpeg4", generate_cover=True)
     task = _task(clip, lut, tmp_path / "cov_out.mp4", params=params, cover=cover)
-    runner = TaskRunner(task, lut_strategy="gather")
+    runner = TaskRunner(task)
     runner.run()
     assert task.status != TaskStatus.FAILED or True
     assert cover.exists() and cover.stat().st_size > 100
@@ -182,7 +182,7 @@ def test_runner_cover_extraction(clip, lut, tmp_path):
 def test_cancel_task_preserves_finished_statuses(clip, lut, tmp_path):
     """A queue-wide cancel sweep (the CLI Ctrl-C loop) must not rewrite
     finished tasks as CANCELED (advisor finding, round 1)."""
-    mgr = TaskManager(lut_strategy="gather")
+    mgr = TaskManager()
     done = _task(clip, lut, tmp_path / "e1_out.mov")
     failed = _task(clip, lut, tmp_path / "e2_out.mov")
     pending = _task(clip, lut, tmp_path / "e3_out.mov")
@@ -220,7 +220,7 @@ def test_runner_exception_cleans_master(clip, lut, tmp_path, monkeypatch):
         return real_build(*a, **kw)
 
     monkeypatch.setattr(runner_mod, "build_render_spec", boom)
-    runner = TaskRunner(task, lut_strategy="gather")
+    runner = TaskRunner(task)
     statuses = []
     runner.finished.connect(lambda tid, s: statuses.append(s))
     runner.run()
@@ -232,7 +232,7 @@ def test_apply_params_to_pending(clip, lut, tmp_path):
     """Bulk re-apply mirrors the reference's Start-button re-snapshot:
     smart defaults from each task's probe, copy-codec guard, fresh output
     paths; finished tasks untouched."""
-    mgr = TaskManager(lut_strategy="gather")
+    mgr = TaskManager()
     t1 = _task(clip, lut, tmp_path / "p1_out.mov",
                params=ProcessingParams(video_codec="copy"))
     t2 = _task(clip, lut, tmp_path / "p2_out.mov")

@@ -24,8 +24,7 @@ from lut_renderer_tpu.utils.fixtures import make_gradient_clip
 def web(tmp_path):
     clip = make_gradient_clip(tmp_path / "c.mp4", 64, 64, fps=25.0, frames=6)
     cube = write_cube_file(tmp_path / "l.cube", Lut3D.identity(5))
-    server = QueueServer(tmp_path / "unused.sock", max_concurrency=2,
-                         lut_strategy="gather")
+    server = QueueServer(tmp_path / "unused.sock", max_concurrency=2)
     ui = WebUI(server, port=0, settings={})
     ui.start()
     yield ui, clip, cube, tmp_path
@@ -350,7 +349,7 @@ def test_token_auth(tmp_path):
     """`serve --http-token`: every endpoint requires the token, supplied as
     ?token= (persisted into a SameSite cookie so <a download> links work)
     or X-Auth-Token; non-loopback binds refuse to start without one."""
-    server = QueueServer(tmp_path / "t.sock", lut_strategy="gather")
+    server = QueueServer(tmp_path / "t.sock")
     ui = WebUI(server, port=0, settings={}, token="sekrit")
     ui.start()
     try:
@@ -393,7 +392,7 @@ def test_origin_gate_uses_reached_host_not_bind_address(tmp_path):
     must accept the page's own fetches and still reject cross-site
     Origins (round-5 code-review catch — comparing against the literal
     bind address 403'd every legitimate POST)."""
-    server = QueueServer(tmp_path / "o.sock", lut_strategy="gather")
+    server = QueueServer(tmp_path / "o.sock")
     ui = WebUI(server, host="0.0.0.0", port=0, settings={}, token="tk")
     ui.start()
     try:
@@ -421,7 +420,7 @@ def test_web_shutdown_is_deterministic(tmp_path):
     """The shutdown reply is flushed BEFORE the signal fires (no wall-clock
     grace timer): by the time the client has the response, the daemon's
     shutdown event is set and new submits are refused."""
-    server = QueueServer(tmp_path / "s.sock", lut_strategy="gather")
+    server = QueueServer(tmp_path / "s.sock")
     ui = WebUI(server, port=0, settings={})
     ui.start()
     try:
