@@ -22,7 +22,9 @@ One process drives the card. Phases (one card):
                 4:2:2 frames from an in-memory source, whose output must
                 equal phase 3's step output;
   5. media      where the FFmpeg libraries load: `render` through the CLI on
-                a generated clip, and a QueueServer answering two submits;
+                a generated clip and on one with audio (AAC re-encode, or
+                the noted stream copy where libavfilter is missing), and a
+                QueueServer answering two submits;
   6. card tests `pytest -m gpu`, in this process.
 
 --multi runs only config 5: run_stage and make_sharded_render_fn on 8K
@@ -35,10 +37,11 @@ Without a GPU the script exits non-zero before any work.
 """
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -68,30 +71,7 @@ def require_gpu():
     return devices
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip()
-
-
 # ---- inputs ----------------------------------------------------------------
-
-def noisy_lut(n: int, seed: int = SEED, domain=None):
-    """Identity n^3 LUT plus a bounded random grade."""
-    from lut_renderer_tpu.colorcore import Lut3D
-
-    rng = np.random.default_rng(seed + n)
-    lut = Lut3D.identity(n)
-    lut.table = np.clip(
-        lut.table + rng.uniform(-0.05, 0.05, lut.table.shape
-                                ).astype(np.float32), 0, 1)
-    if domain is not None:
-        lut.domain_min = np.asarray(domain[0], np.float32)
-        lut.domain_max = np.asarray(domain[1], np.float32)
-    return lut
-
 
 def rgb_frame(rng, h: int, w: int) -> np.ndarray:
     """Random float RGB with rows of exact 0, exact 1 and lattice points."""
@@ -100,24 +80,6 @@ def rgb_frame(rng, h: int, w: int) -> np.ndarray:
     rgb[1] = 1.0
     rgb[2] = rng.integers(0, 33, (w, 3)) / np.float32(32)
     return rgb
-
-
-def yuv_batch(rng, batch: int, h: int, w: int, cfg):
-    """Random code-value planes at cfg's input depth and subsampling, in
-    the legal range of cfg's input range."""
-    d = cfg.in_depth
-    if cfg.in_full_range:
-        ylo, yhi, clo, chi = 0, (1 << d) - 1, 0, (1 << d) - 1
-    else:
-        s = 1 << (d - 8)
-        ylo, yhi, clo, chi = 16 * s, 235 * s, 16 * s, 240 * s
-    dt = np.uint16 if d > 8 else np.uint8
-    hc = h // 2 if cfg.in_subsampling == "420" else h
-    wc = w // 2 if cfg.in_subsampling in ("420", "422") else w
-    y = rng.integers(ylo, yhi + 1, (batch, h, w)).astype(dt)
-    u = rng.integers(clo, chi + 1, (batch, hc, wc)).astype(dt)
-    v = rng.integers(clo, chi + 1, (batch, hc, wc)).astype(dt)
-    return y, u, v
 
 
 def check_lsb(label: str, got, want) -> None:
@@ -196,6 +158,7 @@ class MemorySink:
 def phase_device(devices) -> None:
     import jax
 
+    from lut_renderer_tpu.utils.cardrun import card_line
     from lut_renderer_tpu.utils.compile_cache import (
         enable_persistent_compile_cache,
     )
@@ -215,6 +178,7 @@ def phase_lut_core(h: int = 2160, w: int = 3840) -> None:
     from lut_renderer_tpu.colorcore.interp import apply_lut
     from lut_renderer_tpu.ops import prepare_lut
     from lut_renderer_tpu.ops.lut3d import apply_lut_planes
+    from lut_renderer_tpu.utils.cardrun import noisy_lut
 
     log(f"== phase 2: LUT core at {w}x{h} vs colorcore.interp (NumPy)")
     rgb = rgb_frame(np.random.default_rng(SEED), h, w)
@@ -284,6 +248,7 @@ def phase_render(configs, scale: int = 1) -> dict:
     from lut_renderer_tpu.engine.executor import _pick_batch_size
     from lut_renderer_tpu.ops import prepare_lut
     from lut_renderer_tpu.ops.resample import resample_weights
+    from lut_renderer_tpu.utils.cardrun import noisy_lut, yuv_batch
 
     log("== phase 3: render step vs colorcore.pipeline (NumPy)")
     rng = np.random.default_rng(SEED + 1)
@@ -320,6 +285,7 @@ def phase_executor(compiled, table, batch: int, w: int = 3840,
 
     from lut_renderer_tpu.engine.executor import run_stage
     from lut_renderer_tpu.ops import prepare_lut
+    from lut_renderer_tpu.utils.cardrun import noisy_lut, yuv_batch
 
     log(f"== phase 4: engine.executor.run_stage, {n_batches} batches of "
         f"{batch} {w}x{h} 10-bit 4:2:2 frames")
@@ -368,20 +334,51 @@ def phase_media(tmp: Path, w: int = 1920, h: int = 1080,
     from lut_renderer_tpu.app.server import QueueServer, request
     from lut_renderer_tpu.colorcore import write_cube_file
     from lut_renderer_tpu.hostio import probe_video
-    from lut_renderer_tpu.utils.fixtures import make_gradient_clip
+    from lut_renderer_tpu.hostio.encode import audio_reencode_available
+    from lut_renderer_tpu.utils.cardrun import noisy_lut
+    from lut_renderer_tpu.utils.fixtures import make_av_clip, make_gradient_clip
 
     clip = make_gradient_clip(tmp / "clip.mp4", w, h, fps=25.0, frames=frames)
+    av_clip = make_av_clip(tmp / "av.mov", w, h, frames=frames,
+                           audio_seconds=frames / 25.0)
     cube = write_cube_file(tmp / "look.cube", noisy_lut(33))
-    rc = cli_main(["render", str(clip), "--lut", str(cube), "--codec",
-                   "mpeg4", "--out-dir", str(tmp / "cli")])
-    outs = list((tmp / "cli").glob("*"))
-    if rc != 0 or len(outs) != 1:
-        raise AssertionError(f"cli render rc={rc}, outputs {outs}")
-    info = probe_video(outs[0])
-    log(f"  cli render -> {outs[0].name}: {info.width}x{info.height} "
-        f"{info.pix_fmt} {info.nb_frames} frames")
-    if (info.width, info.height) != (w, h):
-        raise AssertionError(f"cli render output {info.width}x{info.height}")
+
+    def cli_render(src, out_dir, *extra):
+        rc = cli_main(["render", str(src), "--lut", str(cube), "--codec",
+                       "mpeg4", "--out-dir", str(out_dir), *extra])
+        outs = list(out_dir.glob("*"))
+        if rc != 0 or len(outs) != 1:
+            raise AssertionError(f"cli render {src.name} rc={rc}, "
+                                 f"outputs {outs}")
+        info = probe_video(outs[0])
+        log(f"  cli render {src.name} -> {outs[0].name}: {info.width}x"
+            f"{info.height} {info.pix_fmt} {info.nb_frames} frames, audio "
+            f"{info.audio_codec}")
+        if (info.width, info.height) != (w, h):
+            raise AssertionError(f"cli render output {info.width}x"
+                                 f"{info.height}")
+        return info
+
+    cli_render(clip, tmp / "cli")
+    # An AAC re-encode of the audio. Without libavfilter the stream is
+    # copied instead, and the preflight must say so.
+    reencode = audio_reencode_available()
+    plan = io.StringIO()
+    with contextlib.redirect_stdout(plan):
+        rc = cli_main(["render", str(av_clip), "--lut", str(cube), "--codec",
+                       "mpeg4", "--audio-codec", "aac", "--dry-run"])
+    noted = "needs libavfilter" in plan.getvalue()
+    log(f"  libavfilter {'loaded' if reencode else 'missing'}; "
+        f"dry-run notes the audio copy: {noted}")
+    if rc != 0 or noted == reencode:
+        raise AssertionError(f"dry-run rc={rc}; libavfilter loaded "
+                             f"{reencode} but copy note {noted}:\n"
+                             f"{plan.getvalue()}")
+    info = cli_render(av_clip, tmp / "cli_av", "--audio-codec", "aac")
+    want_audio = "aac" if reencode else probe_video(av_clip).audio_codec
+    if info.audio_codec != want_audio:
+        raise AssertionError(f"cli render audio {info.audio_codec}, want "
+                             f"{want_audio}")
 
     server = QueueServer(tmp / "smoke.sock")
     server.start()
@@ -434,6 +431,7 @@ def phase_multi(n_devices: int = 4, w: int = 7680, h: int = 4320,
     from lut_renderer_tpu.ops.render import make_render_fn
     from lut_renderer_tpu.parallel import default_mesh, make_sharded_render_fn
     from lut_renderer_tpu.parallel.sharding import put_sharded
+    from lut_renderer_tpu.utils.cardrun import noisy_lut, yuv_batch
 
     devices = jax.devices()
     if len(devices) != n_devices:

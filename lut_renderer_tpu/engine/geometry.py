@@ -59,11 +59,12 @@ EXACT_GEOMETRIES = frozenset({(1920, 1080), (3840, 2160), (7680, 4320)})
 
 
 def geometry_mode() -> str:
-    """"auto" (default: exact-shape programs), "bucket" (pad ad hoc
-    geometries onto the ladder), or "exact". Env LUT_TPU_GEOMETRY;
-    surfaced in `doctor`."""
-    mode = os.environ.get("LUT_TPU_GEOMETRY", "auto").lower()
-    return mode if mode in ("auto", "bucket", "exact") else "auto"
+    """"bucket" (pad ad hoc geometries onto the ladder) when the env
+    LUT_TPU_GEOMETRY says so, else "exact" (the default: every geometry
+    compiles its own program; older settings' "auto" means the same).
+    Surfaced in `doctor`."""
+    mode = os.environ.get("LUT_TPU_GEOMETRY", "").lower()
+    return "bucket" if mode == "bucket" else "exact"
 
 
 def pick_bucket(w: int, h: int) -> Optional[Tuple[int, int]]:

@@ -130,6 +130,17 @@ def encoder_available(name: str) -> bool:
     return bool(ffi.avcodec.avcodec_find_encoder_by_name(name.encode()))
 
 
+def audio_reencode_available() -> bool:
+    """Whether audio can be re-encoded at all: the transcode's resample and
+    re-frame graph needs libavfilter, which the headless opencv wheel's
+    FFmpeg build leaves out. Without it the encoder copies the audio stream
+    and the policy layer notes the degradation."""
+    try:
+        return get_ffi(verify=False).has_avfilter
+    except Exception:
+        return False
+
+
 @dataclass
 class EncoderSettings:
     codec: str
@@ -313,11 +324,14 @@ class VideoEncoder:
 
     # -- audio --------------------------------------------------------------
     def _setup_audio_copy(self, src: Path) -> Optional[_AudioCopy]:
-        if self._audio_mode not in ("", "copy", None):
+        if (self._audio_mode not in ("", "copy", None)
+                and self.ffi.has_avfilter):
             transcoded = self._setup_audio_transcode(src)
             if transcoded is not None:
                 return transcoded
-            # incompatible shapes / missing encoder: degrade to stream copy
+        # copy mode, no libavfilter, a missing encoder or shapes it cannot
+        # take: stream copy (the policy preflight notes a missing
+        # libavfilter or encoder)
         ffi = self.ffi
         f = ffi.avformat
         ictx = c_void_p(0)
@@ -382,14 +396,11 @@ class VideoEncoder:
         ffmpeg.py:400-408); returns None to signal fallback to copy."""
         from .audio import free_audio_ctx, transcode_audio_packets
 
-        try:
-            result = transcode_audio_packets(
-                src, self._audio_mode, bitrate_to_bits(self._audio_bitrate),
-                sample_rate=self._audio_sample_rate,
-                channels=self._audio_channels,
-            )
-        except Exception:
-            return None
+        result = transcode_audio_packets(
+            src, self._audio_mode, bitrate_to_bits(self._audio_bitrate),
+            sample_rate=self._audio_sample_rate,
+            channels=self._audio_channels,
+        )
         if result is None:
             return None
         enc_ctx, packets, (tb_num, tb_den) = result

@@ -17,8 +17,10 @@ principles:
    A failed check raises FFIUnavailable and callers degrade to cv2 paths.
 
 The libraries are the ones an opencv-python wheel bundles (the full or the
-headless wheel). libavfilter is optional: the headless wheel leaves it out,
-and only the lut3d oracle and audio resampling need it.
+headless wheel). libavfilter is optional: the headless wheel leaves it out.
+The lut3d oracle and every audio re-encode (`-c:a aac` and the other
+non-copy audio codecs) need it; without it the policy preflight notes that
+the audio stream is copied instead (plan/policy.py).
 
 This is the rebuild's equivalent of the reference's L0 native engine
 boundary (SURVEY.md layer map), implemented in-process instead of via argv.
@@ -195,6 +197,10 @@ class FFmpegFFI:
         self.fmt_duration_off: Optional[int] = None
         self.fmt_bit_rate_off: Optional[int] = None
         self._verified = False
+
+    @property
+    def has_avfilter(self) -> bool:
+        return self._avfilter is not None
 
     @property
     def avfilter(self):

@@ -276,14 +276,6 @@ import threading as _threading
 _RENDER_FN_CACHE_LOCK = _threading.Lock()
 
 
-def lut_table_for(prep: Optional[PreparedLut], cfg: RenderConfig):
-    """The host table the render program takes as its LUT operand, or None
-    when no LUT applies."""
-    if prep is None or not cfg.apply_lut:
-        return None
-    return prep.table
-
-
 def make_render_fn(prep: Optional[PreparedLut], cfg: RenderConfig):
     """Build a jitted render function.
 
@@ -296,7 +288,7 @@ def make_render_fn(prep: Optional[PreparedLut], cfg: RenderConfig):
     baked constant, so the compiled program depends only on shapes, LUT
     size, interp, and domain — not the table values — and the jitted
     function itself is cached across LUTs (prep_static_key)."""
-    table_np = lut_table_for(prep, cfg)
+    table_np = prep.table if prep is not None and cfg.apply_lut else None
     if table_np is None and cfg.resize is None:
         fn = functools.partial(render_yuv_frame, prep=prep, cfg=cfg)
         return jax.jit(lambda y, u, v: fn(y, u, v))

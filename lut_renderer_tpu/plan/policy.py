@@ -513,6 +513,7 @@ def build_render_spec(
                     "or the pro mastering mode for stability."
                 )
 
+    audio_forced_copy = False
     if params.audio_codec and params.audio_codec != "copy":
         spec.audio_bitrate = params.audio_bitrate or None
         spec.sample_rate = params.sample_rate or None
@@ -537,7 +538,10 @@ def build_render_spec(
         # name the copy fallback up front instead of failing silently at
         # encode time.
         try:
-            from ..hostio.encode import encoder_available
+            from ..hostio.encode import (
+                audio_reencode_available,
+                encoder_available,
+            )
 
             if not encoder_available(params.audio_codec):
                 notes.append(
@@ -545,6 +549,14 @@ def build_render_spec(
                     f"bundled libraries; the audio stream will be COPIED "
                     f"instead (bundled audio encoders: aac, flac, alac, "
                     f"ac3, eac3, mp2, opus, vorbis, pcm)"
+                )
+            elif not audio_reencode_available():
+                audio_forced_copy = True
+                notes.append(
+                    f"Audio re-encode to '{params.audio_codec}' needs "
+                    f"libavfilter, which the loaded FFmpeg libraries lack; "
+                    f"the audio stream will be COPIED instead (codec, "
+                    f"bitrate, sample rate and channels are not applied)"
                 )
         except Exception:
             pass
@@ -567,7 +579,7 @@ def build_render_spec(
         except Exception:
             eff_video = ""
     eff_audio = params.audio_codec or ""
-    audio_copied = eff_audio in ("", "copy")
+    audio_copied = eff_audio in ("", "copy") or audio_forced_copy
     if audio_copied and source_info is not None and source_info.audio_codec:
         eff_audio = str(source_info.audio_codec)
     blocked_audio = {

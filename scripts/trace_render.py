@@ -15,11 +15,13 @@ TRACED more calls, and reduces the trace to:
   * the step's roofline share: the least bytes it must move (its input
     and output planes) over peak bandwidth, divided by its device kernel
     time;
-  * the top kernels by device time, each with the bytes at its fusion
-    boundary (operand + result sizes from the compiled HLO) over peak
-    bandwidth and kernel time. A fusion that reads a slice of an operand
-    touches less than the operand's size, so this share can exceed 1: it
-    bounds the fusion's traffic from above, not from below.
+  * the top kernels by device time, each with XLA's own bytes-accessed
+    estimate of its instruction (xla_bytes_by_instruction) over peak
+    bandwidth and kernel time. The estimate counts bytes the kernel reads
+    and writes, wherever they come from: a kernel whose operands sit in
+    the card's 50 MB L2 can exceed a share of 1, so the share bounds its
+    HBM traffic from above. The program's total estimate is recorded
+    beside the sum over instructions, which checks the split.
 
 It also times a plain large device copy, the achievable-bandwidth yardstick
 for the same card. Peak bandwidth comes from PEAKS, keyed by device_kind; a
@@ -31,7 +33,6 @@ import argparse
 import glob
 import json
 import re
-import subprocess
 import sys
 import tempfile
 import time
@@ -49,46 +50,81 @@ PEAKS = {"NVIDIA H100 80GB HBM3": 3.35e12}
 ITERS = 10
 TRACED = 3
 
-_DTYPE_BYTES = {"pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "f16": 2,
-                "bf16": 2, "s32": 4, "u32": 4, "f32": 4, "s64": 8, "u64": 8,
-                "f64": 8}
-_SHAPE = re.compile(r"\b(pred|[suf]\d+|bf16)\[([\d,]*)\]")
-_INSTR = re.compile(r"^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=\s*(.+?)\s+"
-                    r"([\w\-]+)\((.*?)\)(?:,|$)")
+# One instruction line of the compiled ENTRY computation: name, result
+# shape, opcode; the operands and attributes follow the opening parenthesis.
+_HEAD = re.compile(r"^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=\s*(.*?)\s+"
+                   r"([a-z][\w\-]*)\(")
+# Instructions that move no data of their own.
+_NO_TRAFFIC = {"parameter", "constant", "get-tuple-element", "tuple",
+               "bitcast"}
 
 
-def shape_bytes(text: str) -> int:
-    total = 0
-    for dt, dims in _SHAPE.findall(text):
-        n = 1
-        for d in filter(None, dims.split(",")):
-            n *= int(d)
-        total += n * _DTYPE_BYTES.get(dt, 4)
-    return total
-
-
-def fusion_bytes(hlo_text: str) -> dict:
-    """Bytes at each ENTRY instruction's boundary: its operands' sizes plus
-    its result's size, from the compiled HLO text."""
-    entry = hlo_text[hlo_text.index("ENTRY"):]
-    entry = entry[:entry.index("\n}")]
-    shapes, out = {}, {}
-    for line in entry.splitlines()[1:]:
-        m = _INSTR.match(line)
+def _entry_instructions(hlo_text: str):
+    """(text before ENTRY, text after it, [(name, shape, opcode, operand
+    names, attributes)]) of a module's HLO text."""
+    start = hlo_text.index("\nENTRY")
+    end = hlo_text.index("\n}", start)
+    instrs = []
+    for line in hlo_text[start:end].splitlines()[2:]:
+        m = _HEAD.match(line)
         if not m:
             continue
-        name, shape, _, args = m.groups()
-        shapes[name] = shape_bytes(shape)
-        operands = re.findall(r"%([\w.\-]+)", args)
-        out[name] = shapes[name] + sum(shapes.get(o, 0) for o in operands)
+        depth, i = 0, m.end() - 1
+        for j in range(i, len(line)):
+            depth += {"(": 1, ")": -1}.get(line[j], 0)
+            if depth == 0:
+                break
+        instrs.append((m.group(1), m.group(2), m.group(3),
+                       re.findall(r"%([\w.\-]+)", line[i + 1:j]),
+                       line[j + 1:]))
+    return hlo_text[:start], hlo_text[end + 2:], instrs
+
+
+def xla_bytes_by_instruction(hlo_text: str, errors=None) -> dict:
+    """XLA's own bytes-accessed estimate for each instruction of the
+    compiled ENTRY computation, keyed by instruction name.
+
+    Each instruction is put alone into a module, with a parameter for each
+    operand and the module's other computations (fusion bodies) as they
+    are, and XLA's cost analysis runs on that module. For a fusion this is
+    the estimate XLA's cost model makes of it, including what it knows of
+    operands read only in part. The sum over instructions equals the cost
+    analysis of the whole program (`compiled.cost_analysis()`), which
+    checks the split. An instruction the cost analysis rejects maps to
+    None, with the reason in `errors` where a dict is given."""
+    import jax
+    from jax._src.lib import xla_client
+
+    # the GPU plugin's client has no HLO cost analysis; the host's does,
+    # and it reads any backend's compiled HLO
+    client = jax.devices("cpu")[0].client
+    errors = {} if errors is None else errors
+    head, tail, instrs = _entry_instructions(hlo_text)
+    # the HloModule line names the old ENTRY's layout; the probe has its own
+    computations = head[head.index("\n"):]
+    shapes = {name: shape for name, shape, *_ in instrs}
+    out = {}
+    for name, shape, op, operands, attrs in instrs:
+        if op in _NO_TRAFFIC:
+            continue
+        params = ", ".join(f"p{k}: {shapes[o]}"
+                           for k, o in enumerate(operands))
+        body = [f"  %p{k} = {shapes[o]} parameter({k})"
+                for k, o in enumerate(operands)]
+        args = ", ".join(f"%p{k}" for k in range(len(operands)))
+        # scheduling edges name instructions the probe does not have
+        attrs = re.sub(r",\s*control-predecessors=\{[^}]*\}", "", attrs)
+        body.append(f"  ROOT %{name} = {shape} {op}({args}){attrs}")
+        text = (f"HloModule probe{computations}\nENTRY %probe ({params}) -> "
+                f"{shape} {{\n" + "\n".join(body) + "\n}\n" + tail)
+        try:
+            cost = xla_client._xla.hlo_module_cost_analysis(
+                client, xla_client._xla.hlo_module_from_text(text))
+            out[name] = cost.get("bytes accessed")
+        except Exception as exc:
+            out[name] = None
+            errors[name] = str(exc)[:500]
     return out
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
 
 
 def reduce_trace(trace_dir: str, calls: int) -> dict:
@@ -132,24 +168,14 @@ def reduce_trace(trace_dir: str, calls: int) -> dict:
 def run_cell(label, w, h, batch, cfg_kwargs, peak) -> dict:
     import jax
 
-    from lut_renderer_tpu.colorcore import Lut3D
     from lut_renderer_tpu.ops import RenderConfig, prepare_lut
     from lut_renderer_tpu.ops.render import render_yuv_frame
+    from lut_renderer_tpu.utils.cardrun import noisy_lut, yuv_batch
 
     cfg = RenderConfig(**cfg_kwargs)
-    rng = np.random.default_rng(0)
-    lut = Lut3D.identity(33)
-    lut.table = np.clip(lut.table + rng.uniform(-0.05, 0.05, lut.table.shape)
-                        .astype(np.float32), 0, 1)
-    prep = prepare_lut(lut)
-    d = cfg.in_depth
-    dt = np.uint16 if d > 8 else np.uint8
-    s = 1 << (d - 8)
-    hc = h // 2 if cfg.in_subsampling == "420" else h
-    y, u, v = (jax.device_put(rng.integers(16 * s, 235 * s + 1, shape)
-                              .astype(dt))
-               for shape in ((batch, h, w), (batch, hc, w // 2),
-                             (batch, hc, w // 2)))
+    prep = prepare_lut(noisy_lut(33))
+    y, u, v = (jax.device_put(a) for a in
+               yuv_batch(np.random.default_rng(0), batch, h, w, cfg))
     table = jax.device_put(prep.table)
     step = jax.jit(lambda y, u, v, t: render_yuv_frame(y, u, v, prep, cfg,
                                                        lut_table=t))
@@ -168,17 +194,17 @@ def run_cell(label, w, h, batch, cfg_kwargs, peak) -> dict:
             jax.block_until_ready(compiled(y, u, v, table))
         jax.profiler.stop_trace()
         tr = reduce_trace(tdir, TRACED)
-    fb = fusion_bytes(compiled.as_text())
+    xb_errors = {}
+    xb = xla_bytes_by_instruction(compiled.as_text(), xb_errors)
     kernels = []
     for name, ns in sorted(tr["per_call_ns"].items(), key=lambda kv: -kv[1]):
-        key = name.split(" ")[0]
-        nbytes = fb.get(key)
+        nbytes = xb.get(name.split(" ")[0])
         kernels.append({
             "name": name, "us_per_call": ns / 1e3,
             "share_of_kernel_time": ns / sum(tr["per_call_ns"].values()),
-            "boundary_bytes": nbytes,
-            "boundary_share_of_peak": (nbytes / peak / (ns * 1e-9)
-                                       if nbytes else None),
+            "xla_bytes_accessed": nbytes,
+            "xla_bytes_share_of_peak": (nbytes / peak / (ns * 1e-9)
+                                        if nbytes else None),
         })
     total_ns = sum(tr["per_call_ns"].values())
     out = compiled(y, u, v, table)
@@ -191,6 +217,11 @@ def run_cell(label, w, h, batch, cfg_kwargs, peak) -> dict:
         "device_busy_share_traced": tr["busy_ns"] / tr["window_ns"],
         "io_bytes_per_call": io_bytes,
         "io_roofline_ms_per_call": io_bytes / peak * 1e3,
+        "xla_bytes_accessed_program": compiled.cost_analysis().get(
+            "bytes accessed"),
+        "xla_bytes_accessed_sum_of_instructions": sum(
+            b for b in xb.values() if b),
+        "instructions_without_estimate": xb_errors,
         "roofline_share": io_bytes / peak / (total_ns * 1e-9),
         "memory_analysis": str(compiled.memory_analysis()),
         "top_kernels": kernels[:10],
@@ -216,6 +247,8 @@ def copy_bandwidth() -> float:
 
 def main() -> int:
     import jax
+
+    from lut_renderer_tpu.utils.cardrun import card_line
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=str(ROOT / "chiprun_out"
@@ -244,7 +277,7 @@ def main() -> int:
               f"busy {c['device_busy_share_traced']:.3f}, "
               f"roofline share {c['roofline_share']:.4f}")
         for k in c["top_kernels"][:6]:
-            rs = k["boundary_share_of_peak"]
+            rs = k["xla_bytes_share_of_peak"]
             print(f"   {k['us_per_call']:9.1f} us  "
                   f"{'-' if rs is None else f'{rs:.2f}'}  {k['name'][:90]}")
     print(f"card: {result['card']}; copy "

@@ -103,3 +103,56 @@ def test_engine_stage_with_audio(av_clip, tmp_path):
     assert res.ok, res.error
     oinfo = probe_video(out)
     assert oinfo.audio_codec == "aac"
+
+
+@pytest.fixture()
+def no_avfilter(monkeypatch):
+    """The loaded FFmpeg libraries as the headless opencv wheel ships them:
+    everything but libavfilter."""
+    from lut_renderer_tpu.hostio.ffi import FFIUnavailable, get_ffi
+
+    ffi = get_ffi()
+    monkeypatch.setattr(ffi, "_avfilter", None)
+    monkeypatch.setattr(ffi, "_avfilter_error",
+                        FFIUnavailable("missing libavfilter-*.so*"))
+
+
+@pytest.mark.parametrize("ext,copied_warning", [(".mov", False),
+                                                (".webm", True)])
+def test_policy_notes_audio_copy_without_avfilter(av_clip, tmp_path,
+                                                  no_avfilter, ext,
+                                                  copied_warning):
+    """No libavfilter: the preflight names the copy that replaces the
+    requested re-encode, and the container check sees the copied codec."""
+    from lut_renderer_tpu.models import ProcessingParams
+    from lut_renderer_tpu.plan import build_render_spec
+
+    info = probe_video(av_clip)
+    spec = build_render_spec(
+        Path(av_clip), tmp_path / f"out{ext}",
+        ProcessingParams(video_codec="mpeg4", audio_codec="aac"), None, info)
+    assert any("needs libavfilter" in n and "COPIED" in n
+               for n in spec.notes), spec.notes
+    assert any("pcm_s16le audio (copied from the source)" in n
+               for n in spec.notes) == copied_warning
+
+
+def test_engine_stage_without_avfilter_copies_audio(av_clip, tmp_path,
+                                                    no_avfilter):
+    """No libavfilter: the stage still completes, with the source's audio
+    stream copied as the preflight note says."""
+    from lut_renderer_tpu.engine import run_stage
+    from lut_renderer_tpu.models import ProcessingParams
+    from lut_renderer_tpu.plan import build_render_spec
+
+    info = probe_video(av_clip)
+    out = tmp_path / "copied.mov"
+    spec = build_render_spec(
+        Path(av_clip), out,
+        ProcessingParams(video_codec="mpeg4", audio_codec="aac",
+                         audio_bitrate="96k"),
+        None, info,
+    )
+    res = run_stage(spec, info, None)
+    assert res.ok, res.error
+    assert probe_video(out).audio_codec == "pcm_s16le"

@@ -50,15 +50,15 @@ def test_pick_bucket_policy(bucket_mode):
 
 
 def test_mode_policy(monkeypatch):
-    monkeypatch.setenv("LUT_TPU_GEOMETRY", "exact")
-    assert pick_bucket(640, 360) is None
-    # default/unknown = auto = exact shapes on every platform: bucketing is
-    # the explicit mode until a measurement on the device says it pays
-    monkeypatch.setenv("LUT_TPU_GEOMETRY", "nonsense")
-    assert geometry.geometry_mode() == "auto"
-    assert pick_bucket(640, 360) is None
-    monkeypatch.delenv("LUT_TPU_GEOMETRY")
-    assert geometry.geometry_mode() == "auto"
+    # default, the older "exact" and "auto" values and unknown values all
+    # run exact shapes: bucketing is the explicit mode until a measurement
+    # on the device says it pays
+    for value in ("exact", "auto", "nonsense"):
+        monkeypatch.setenv("LUT_TPU_GEOMETRY", value)
+        assert geometry.geometry_mode() == "exact"
+        assert pick_bucket(640, 360) is None
+    monkeypatch.delenv("LUT_TPU_GEOMETRY", raising=False)
+    assert geometry.geometry_mode() == "exact"
     assert pick_bucket(640, 360) is None
     monkeypatch.setenv("LUT_TPU_GEOMETRY", "bucket")
     assert pick_bucket(640, 360) == (640, 368)
@@ -66,7 +66,7 @@ def test_mode_policy(monkeypatch):
 
 def test_warmup_skips_buckets_when_unroutable(monkeypatch):
     """`serve --warmup` must not spend minutes compiling bucket programs
-    no job can route to (exact and auto modes)."""
+    no job can route to (the default exact mode, however it is named)."""
     from lut_renderer_tpu.engine import warmup as W
 
     captured = {}

@@ -9,20 +9,12 @@ GPU, against the NumPy references. They skip without a card; on the card:
 import numpy as np
 import pytest
 
-from lut_renderer_tpu.colorcore import INTERP_MODES, Lut3D, apply_lut
+from lut_renderer_tpu.colorcore import INTERP_MODES, apply_lut
 from lut_renderer_tpu.colorcore.pipeline import render_yuv_reference
 from lut_renderer_tpu.ops import RenderConfig, prepare_lut
+from lut_renderer_tpu.utils.cardrun import noisy_lut, yuv_batch
 
 pytestmark = pytest.mark.gpu
-
-
-def _lut(n, seed=9):
-    rng = np.random.default_rng(seed + n)
-    lut = Lut3D.identity(n)
-    lut.table = np.clip(
-        lut.table + rng.uniform(-0.05, 0.05, lut.table.shape
-                                ).astype(np.float32), 0, 1)
-    return lut
 
 
 @pytest.mark.parametrize("interp", INTERP_MODES)
@@ -33,7 +25,7 @@ def test_lut_core_on_gpu(gpu, interp):
 
     from lut_renderer_tpu.ops.lut3d import apply_lut_planes
 
-    lut = _lut(33)
+    lut = noisy_lut(33, seed=9)
     prep = prepare_lut(lut)
     rgb = np.random.default_rng(1).uniform(0, 1, (1080, 1920, 3)
                                            ).astype(np.float32)
@@ -63,13 +55,8 @@ def test_render_step_on_gpu(gpu, case):
     cfg = RenderConfig(**case)
     rng = np.random.default_rng(2)
     h, w = 1080, 1920
-    hi = (1 << cfg.in_depth) - 1
-    dt = np.uint16 if cfg.in_depth > 8 else np.uint8
-    hc = h // 2 if cfg.in_subsampling == "420" else h
-    y = rng.integers(0, hi + 1, (2, h, w)).astype(dt)
-    u = rng.integers(0, hi + 1, (2, hc, w // 2)).astype(dt)
-    v = rng.integers(0, hi + 1, (2, hc, w // 2)).astype(dt)
-    prep = prepare_lut(_lut(33))
+    y, u, v = yuv_batch(rng, 2, h, w, cfg, full_scale=True)
+    prep = prepare_lut(noisy_lut(33, seed=9))
     got = make_render_fn(prep, cfg)(y, u, v)
     rsw = (resample_weights((h, w), (cfg.resize[1], cfg.resize[0]))
            if cfg.resize else None)

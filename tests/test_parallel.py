@@ -117,11 +117,14 @@ def _graft_module(name):
 
 
 def test_graft_entry_forward():
-    """entry() is a real 4K batch; trace it (shapes and dtypes) without
-    spending CPU time on 16 Mpix of render work."""
+    """entry() is a real 4K batch: compile and run it, and check the
+    planes that come out against its traced shapes and dtypes."""
     fn, args = _graft_module("graft_entry2").entry()
     assert args[0].shape == (2, 2160, 3840) and args[1].shape == (2, 1080, 1920)
-    out = jax.eval_shape(fn, *args)
+    traced = jax.eval_shape(fn, *args)
+    out = jax.block_until_ready(jax.jit(fn)(*args))
+    assert [(o.shape, o.dtype) for o in out] == [
+        (t.shape, t.dtype) for t in traced]
     assert [o.shape for o in out] == [a.shape for a in args]
     assert all(o.dtype == np.uint8 for o in out)
 
